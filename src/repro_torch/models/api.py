@@ -1,0 +1,33 @@
+"""Model front door: ``build_model(cfg)`` returns a Model facade with
+init / prefill / decode_step bound to the decoder LM.
+
+``loss`` waits for the training slice of the port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+from . import lm
+from .config import ModelConfig, check_supported
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init: Callable
+    prefill: Callable
+    decode_step: Callable
+    logits: Optional[Callable] = None
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    check_supported(cfg)
+    return Model(
+        cfg=cfg,
+        init=lambda gen: lm.init(cfg, gen),
+        prefill=lambda params, batch, max_len: lm.prefill(cfg, params, batch, max_len),
+        decode_step=lambda params, cache, token, pos: lm.decode_step(cfg, params, cache, token, pos),
+        logits=lambda params, batch: lm.logits_fn(cfg, params, batch),
+    )
