@@ -7,22 +7,32 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. device  — name and power limit (nvidia-smi), torch and CUDA versions;
              requires compute capability 9.0; turns TF32 off.
-2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc.
-3. kernels — every kernel against its plain torch version on the card, at
-             the serve shapes and ragged ones, in bf16 and fp32; the bf16
-             flash kernel also against a dense fp32 reference on the same
-             bf16 values, with a tight limit that planted faults must
-             break; then CUDA event timings of kernel, plain version and
-             the PyTorch library call (SDPA, a yardstick the port never
-             calls).
-4. main    — full-width tinyllama-1.1b in bf16, random weights from a
-             seed, serves batch 8, prompt 1000, gen 64 greedily through
-             ``make_generate_loop``; checks launch counts, token range, and
-             the kernel path's logits (prefill and every decode step) and
-             final cache against the plain path's, teacher forced; then
-             the same check on paths with planted faults, which it must
-             reject.
-5. report  — one ``kernels`` JSON line, the nvidia-smi line, and the result
+2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc, one process
+             per source, all at once.
+3. kernels — the attention kernels against their plain torch versions on
+             the card, at the serve shapes (TinyLlama's GQA and Zamba2's
+             MHA) and ragged ones, in bf16 and fp32; the bf16 flash kernel
+             also against a dense fp32 reference on the same bf16 values,
+             with a tight limit that planted faults must break; then CUDA
+             event timings of kernel, plain version and the PyTorch library
+             call (SDPA, a yardstick the port never calls).
+4. scans   — the Mamba2 and RWKV6 scan kernels against their plain versions
+             (the chunked references) and the token recurrences: serve
+             shape, nonzero initial state, ragged S, G > 1, strongly
+             decaying channels; planted faults (state carry dropped, decay
+             one position late, bonus u omitted) that the limits must
+             reject; timings of kernel and plain version.
+5. main    — three paths, each full width in bf16 with random weights from
+             a seed, serving batch 8 and 64 greedy tokens through
+             ``make_generate_loop``: tinyllama-1.1b (prompt 1000),
+             zamba2-1.2b and rwkv6-7b (prompt 1024, a multiple of the
+             reference's scan chunks).  Each checks its launch counts, token
+             range, and the kernel path's logits (prefill and every decode
+             step) and final cache against the plain path's, teacher
+             forced; then the same check on paths with planted faults,
+             which it must reject; and profiles one prefill and a window of
+             decode steps.
+6. report  — one ``kernels`` JSON line, the nvidia-smi line, and the result
              line ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -33,6 +43,7 @@ package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -55,13 +66,18 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # atol = rtol, as the reference's ker
 # output to bf16, each at most a relative 2^-8.  atol + rtol * |want|.
 TIGHT_ATOL, TIGHT_RTOL = 5e-3, 1e-2
 
-# main path: full-width tinyllama serving
-ARCH, BATCH, PROMPT, GEN = "tinyllama-1.1b", 8, 1000, 64
+# main paths: full-width serving of each ported architecture, (arch, prompt)
+PATHS = (("tinyllama-1.1b", 1000), ("zamba2-1.2b", 1024), ("rwkv6-7b", 1024))
+BATCH, GEN = 8, 64
+PROMPT = PATHS[0][1]  # the attention kernels' serve shapes are TinyLlama's
 # bf16 logits and cache, kernel path vs plain path, teacher forced:
-# atol + rtol * |plain|.  The two paths round attention in different places
-# (fp32 scores in the kernel, bf16 scores in the plain path); 22 bf16 layers
-# carry that difference to the logits, whose scale is ~1 for these random
-# weights.  The planted faults of phase 4 must break this limit.
+# atol + rtol * |plain| (TinyLlama; the SSM paths are held to their measured
+# noise floor instead, see phase_main).  The two paths round in different places (fp32
+# scores in the attention kernel where the plain path rounds them to bf16;
+# fp32 C.B in the Mamba2 kernel where the plain path rounds it to bf16);
+# 22-38 bf16 layers carry that difference to the logits, whose scale is ~1
+# for these random weights.  The planted faults of phase 5 must break this
+# limit.
 LIMIT_ATOL, LIMIT_RTOL = 0.1, 0.05
 
 
@@ -208,6 +224,7 @@ def phase_kernels(torch):
     # --- flash attention: (B, H, KV, S, T, D, causal)
     main_fa = (BATCH, 32, 4, PROMPT, PROMPT, 64, True)
     fa_cases = [main_fa,
+                (BATCH, 32, 32, 1024, 1024, 64, True),  # Zamba2's shared block: MHA
                 (2, 8, 2, 130, 257, 64, True),     # S != T, both ragged
                 (1, 4, 2, 130, 130, 128, True),
                 (2, 4, 1, 257, 257, 256, True),
@@ -247,7 +264,9 @@ def phase_kernels(torch):
     main_dec = (BATCH, 32, 4, T_main, 64)
     lengths = torch.randint(1, T_main + 1, (BATCH,), generator=gen, device="cuda").tolist()
     lengths[0], lengths[1] = 1, T_main
-    dec_cases = [(main_dec, lengths), ((3, 8, 2, 300, 128), [1, 300, 157]),
+    dec_cases = [(main_dec, lengths),
+                 ((BATCH, 32, 32, 1024 + GEN + 1, 64), [1024 + GEN] * BATCH),  # Zamba2, MHA
+                 ((3, 8, 2, 300, 128), [1, 300, 157]),
                  ((2, 8, 8, 77, 64), [77, 13])]
     for (B, H, KV, T, D), length in dec_cases:
         for dname, dt in dtypes.items():
@@ -351,36 +370,321 @@ def _kernel_controls(torch, q, k, v, got):
     return readings
 
 
-def phase_main(torch, smi):
+# ---------------------------------------------------------------------------
+# scans
+# ---------------------------------------------------------------------------
+# the reference's own kernel-test limits (tests/test_kernels.py), atol = rtol
+SCAN_TOL = {"mamba2": 1e-4, "rwkv6": 5e-5, "rwkv6_naive": 2e-3, "bfloat16": 2e-2}
+MAMBA_CHUNK, RWKV_CHUNK = 64, 32  # the kernels' own chunk lengths
+SCAN_SERVE = {"mamba2": (BATCH, 1024, 64, 64, 1, 64),   # B, S, H, P, G, N (zamba2-1.2b)
+              "rwkv6": (BATCH, 1024, 64, 64)}          # B, S, H, K = V (rwkv6-7b)
+
+
+def _mamba_inputs(torch, gen, B, S, H, P, G, N, dtype, h0=False):
+    """The distributions of the reference's kernel tests."""
+    x = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dtype)
+    dt = torch.rand((B, S, H), generator=gen, device="cuda") * 0.19 + 0.01
+    A = -(torch.rand((H,), generator=gen, device="cuda") * 1.5 + 0.5)
+    Bm = torch.randn((B, S, G, N), generator=gen, device="cuda").to(dtype)
+    Cm = torch.randn((B, S, G, N), generator=gen, device="cuda").to(dtype)
+    h = torch.randn((B, H, P, N), generator=gen, device="cuda") if h0 else None
+    return x, dt, A, Bm, Cm, h
+
+
+def _rwkv_inputs(torch, gen, B, S, H, K, dtype, s0=False, w_max=3.0, grid=True):
+    """The distributions of the reference's kernel tests.  With ``grid``, w
+    lies on a 2^-6 grid: every prefix sum of w is then exact in fp32 in any
+    order, so the kernel and the chunked plain version form the same decay
+    exponents.  Off the grid, fp32 prefix sums near -190 round by ~1e-5, and
+    exp(cwx_t - cw_s) of two summation orders differs by more than the
+    reference's 5e-5 (it holds only between implementations that share one
+    cumsum, as the reference's own test does)."""
+    r, k, v = (torch.randn((B, S, H, K), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    w = -(torch.rand((B, S, H, K), generator=gen, device="cuda") * (w_max - 0.01) + 0.01)
+    if grid:
+        w = -torch.clamp(torch.round(-w * 64), min=1) / 64
+    u = torch.randn((H, K), generator=gen, device="cuda")
+    s = torch.randn((B, H, K, K), generator=gen, device="cuda") if s0 else None
+    return r, k, v, w, u, s
+
+
+def _upcast(args):
+    """The same values in fp32: the plain versions then do the kernels'
+    fp32 arithmetic on the bf16 inputs (the reference's own forms round
+    C.B and k.v to the inputs' dtype, which the kernels do not)."""
+    return tuple(None if t is None else t.float() for t in args)
+
+
+def _scan_close(name, got, want, tol_y, tol_s, fails):
+    """y and final state against a reference; failures are collected so that
+    every reading of the phase is logged before it raises.  With ``fails``
+    None the reading is logged only."""
+    out = []
+    for part, g, w, tol in (("y", got[0], want[0], tol_y), ("state", got[1], want[1], tol_s)):
+        err, bad, share = beyond(g, w, tol, tol)
+        log(f"[scans] {name} {part}: max_abs_err={err:.3e} atol=rtol={tol:g} "
+            f"(uses {100 * share:.0f}% of the limit) "
+            f"{'read only' if fails is None else 'ok' if bad == 0 else f'FAIL ({bad} elements)'}")
+        if bad and fails is not None:
+            fails.append(f"{name} {part}: {bad} elements beyond {tol:g} (max_abs_err {err:.3e})")
+        out.append(err)
+    return out
+
+
+def _fold(t, L):
+    """(B, S, ...) -> (B * S / L, L, ...): every chunk of L a sequence of its own."""
+    return t.reshape(t.shape[0] * (t.shape[1] // L), L, *t.shape[2:])
+
+
+def _wkv_decay_late(torch, r, k, v, w, u, s0=None):
+    """Planted fault: the token recurrence with the decay applied one
+    position late, y_t = r_t (diag(exp w_t) S_{t-1} + diag(u) k_t v_t^T)."""
+    B, S, H, K = r.shape
+    s = torch.zeros((B, H, K, v.shape[-1]), device=r.device) if s0 is None else s0.float()
+    ys = []
+    for t in range(S):
+        kv = k[:, t].float()[..., :, None] * v[:, t].float()[..., None, :]
+        e = torch.exp(w[:, t].float())[..., None]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(),
+                               e * s + u[None, :, :, None] * kv))
+        s = e * s + kv
+    return torch.stack(ys, 1).to(v.dtype)
+
+
+def _scan_controls(name, outs, faulty, fails):
+    """The sound kernel outputs (fp32 and bf16, same seed) against references
+    with a planted fault: each limit must reject it."""
+    reading = {"fault": name}
+    for dname, got in outs.items():
+        tol = SCAN_TOL["mamba2" if "mamba2" in name else "rwkv6"] \
+            if dname == "float32" else SCAN_TOL["bfloat16"]
+        err, bad, _ = beyond(got, faulty[dname], tol, tol)
+        log(f"[scans] control, {name}, {dname}: max_abs_err={err:.3e}; beyond "
+            f"atol=rtol={tol:g}: {bad} elements")
+        if bad == 0:
+            fails.append(f"control {name} ({dname}): the limit does not reject it")
+        reading[f"beyond_{dname}"] = bad
+        reading[f"max_abs_err_{dname}"] = err
+    return reading
+
+
+def phase_scans(torch):
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as r6
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    fails, errs = [], {}
+    BF = SCAN_TOL["bfloat16"]
+
+    # --- mamba2.  bf16 outputs are held against the plain versions on the
+    # same bf16 values in fp32 (the kernel's arithmetic); the reading against
+    # the bf16 plain version (the reference's rounding of C.B) is logged only
+    M = SCAN_TOL["mamba2"]
+    main_m = SCAN_SERVE["mamba2"]
+    serve_out, serve_in = {}, {}
+    for seed, (shape, h0, label) in enumerate(((main_m, False, "serve shape"),
+                                               ((2, 1024, 64, 64, 1, 64), True, "nonzero h0"),
+                                               ((2, 512, 8, 64, 2, 64), True, "G=2"),
+                                               ((2, 1000, 8, 64, 1, 64), True, "ragged S=1000"))):
+        B, S, H, P, G, N = shape
+        for dname, dt in dtypes.items():
+            # one seed per case: the bf16 inputs are the fp32 ones, rounded
+            case_gen = torch.Generator(device="cuda").manual_seed(10 + seed)
+            args = _mamba_inputs(torch, case_gen, *shape, dt, h0)
+            got = m2.mamba2_scan(*args)
+            torch.cuda.synchronize()
+            tag = f"mamba2_scan {dname} B={B} S={S} H={H} P={P} G={G} N={N} ({label})"
+            ty = M if dname == "float32" else BF
+            if S % 128 == 0:
+                errs[("m2", label, dname)] = _scan_close(
+                    tag + " vs plain", got, m2.mamba2_plain(*_upcast(args)), ty, M, fails)
+                if dname == "bfloat16":
+                    _scan_close(tag + " vs bf16 plain", got, m2.mamba2_plain(*args), BF, M, None)
+            if dname == "float32" or S % 128:
+                _scan_close(tag + " vs naive", got, ref.mamba2_scan_naive(*_upcast(args)),
+                            ty, M, fails)
+            if shape == main_m:
+                serve_out[dname], serve_in[dname] = got[0], _upcast(args)
+    m2_controls = [_scan_controls(
+        f"mamba2_scan: state carry dropped between chunks of {MAMBA_CHUNK}", serve_out,
+        {d: m2.mamba2_plain(_fold(a[0], MAMBA_CHUNK), _fold(a[1], MAMBA_CHUNK), a[2],
+                            _fold(a[3], MAMBA_CHUNK), _fold(a[4], MAMBA_CHUNK))[0]
+            .reshape(a[0].shape) for d, a in serve_in.items()}, fails)]
+    del serve_out, serve_in
+
+    # --- rwkv6, the same way; w on the 2^-6 grid (see _rwkv_inputs), and
+    # one case off it, held against the token recurrence only
+    R, RN = SCAN_TOL["rwkv6"], SCAN_TOL["rwkv6_naive"]
+    main_r = SCAN_SERVE["rwkv6"]
+    serve_out, serve_in = {}, {}
+    for seed, (shape, s0, w_max, grid, label) in enumerate((
+            (main_r, False, 3.0, True, "serve shape"),
+            (main_r, False, 3.0, False, "serve shape, w off the grid"),
+            ((2, 1024, 64, 64), True, 3.0, True, "nonzero s0"),
+            ((2, 1000, 4, 64), True, 3.0, True, "ragged S=1000"),
+            ((2, 256, 4, 64), True, 8.0, True, "w down to -8"))):
+        B, S, H, K = shape
+        for dname, dt in dtypes.items():
+            case_gen = torch.Generator(device="cuda").manual_seed(20 + seed)
+            args = _rwkv_inputs(torch, case_gen, *shape, dt, s0, w_max, grid)
+            got = r6.rwkv6_scan(*args)
+            torch.cuda.synchronize()
+            tag = f"rwkv6_scan {dname} B={B} S={S} H={H} K=V={K} ({label})"
+            if S % 64 == 0 and grid:
+                errs[("r6", label, dname)] = _scan_close(
+                    tag + " vs plain", got, r6.rwkv6_plain(*_upcast(args)),
+                    R if dname == "float32" else BF, R, fails)
+                if dname == "bfloat16":
+                    _scan_close(tag + " vs bf16 plain", got, r6.rwkv6_plain(*args), BF, R, None)
+            if dname == "float32" or S % 64 or not grid:
+                _scan_close(tag + " vs naive", got, ref.rwkv6_scan_naive(*_upcast(args)),
+                            RN if dname == "float32" else BF, RN, fails)
+            if label == "serve shape":
+                serve_out[dname], serve_in[dname] = got[0], _upcast(args)
+    r6_controls = [
+        _scan_controls(f"rwkv6_scan: state carry dropped between chunks of {RWKV_CHUNK}",
+                       serve_out, {d: r6.rwkv6_plain(*(_fold(t, RWKV_CHUNK) for t in a[:4]), a[4])[0]
+                                   .reshape(a[2].shape) for d, a in serve_in.items()}, fails),
+        _scan_controls("rwkv6_scan: decay applied one position late (inclusive)", serve_out,
+                       {d: _wkv_decay_late(torch, *a[:5]) for d, a in serve_in.items()}, fails),
+        _scan_controls("rwkv6_scan: bonus u omitted", serve_out,
+                       {d: r6.rwkv6_plain(*a[:4], torch.zeros_like(a[4]))[0]
+                        for d, a in serve_in.items()}, fails)]
+    del serve_out, serve_in
+    if fails:
+        raise AssertionError("scan kernels disagree with their references, or a limit "
+                             "misses a planted fault:\n  " + "\n  ".join(fails))
+
+    # --- timings and bounds at the serve shapes, bf16
+    bf = torch.bfloat16
+    B, S, H, P, G, N = main_m
+    nbytes = 2 * B * S * H * P + 4 * B * S * H + 4 * H + 2 * 2 * B * S * G * N \
+        + 2 * B * S * H * P + 4 * B * H * P * N
+    L, nc = MAMBA_CHUNK, -(-S // MAMBA_CHUNK)
+    flops = B * nc * (G * 2 * L * L * N + H * (2 * L * L * P + 4 * L * P * N))
+    m_in = copies_beyond_l2(lambda: _mamba_inputs(torch, gen, *main_m, bf)[:5], nbytes)
+    m_bound, m_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    m_row = {
+        "name": "mamba2_scan", "route": "cuda", "source": "src/repro_torch/csrc/mamba2_scan.cu",
+        "replaces": "src/repro/kernels/mamba2_scan.py:100",
+        "shape": f"B={B} S={S} H={H} P={P} G={G} N={N} bf16 x/B/C, fp32 dt/A/state",
+        "max_abs_err": errs[("m2", "serve shape", "bfloat16")][0],
+        "max_abs_err_state": errs[("m2", "serve shape", "bfloat16")][1],
+        "max_abs_err_fp32": errs[("m2", "serve shape", "float32")][0],
+        "tol": BF, "tol_fp32": M, "controls": m2_controls,
+        "ms": time_ms(torch, m2.mamba2_scan, m_in),
+        "plain_ms": time_ms(torch, m2.mamba2_plain, m_in, iters=3, warmup=1),
+        "library_ms": None, "library_note": "no single PyTorch call computes the scan",
+        "bound_ms": m_bound, "bound_by": m_by,
+    }
+    del m_in
+    B, S, H, K = main_r
+    nbytes = 3 * 2 * B * S * H * K + 4 * B * S * H * K + 4 * H * K + 2 * B * S * H * K \
+        + 4 * B * H * K * K
+    L, nc = RWKV_CHUNK, -(-S // RWKV_CHUNK)
+    pairs = L * (L - 1) // 2
+    flops = B * H * nc * (4 * pairs * K + 3 * L * K + 4 * L * K * K + 2 * pairs * K + 2 * L * K)
+    r_in = copies_beyond_l2(lambda: _rwkv_inputs(torch, gen, *main_r, bf)[:5], nbytes)
+    r_bound, r_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    r_row = {
+        "name": "rwkv6_scan", "route": "cuda", "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:95",
+        "shape": f"B={B} S={S} H={H} K=V={K} bf16 r/k/v, fp32 w/u/state",
+        "max_abs_err": errs[("r6", "serve shape", "bfloat16")][0],
+        "max_abs_err_state": errs[("r6", "serve shape", "bfloat16")][1],
+        "max_abs_err_fp32": errs[("r6", "serve shape", "float32")][0],
+        "tol": BF, "tol_fp32": R, "controls": r6_controls,
+        "ms": time_ms(torch, r6.rwkv6_scan, r_in),
+        "plain_ms": time_ms(torch, r6.rwkv6_plain, r_in, iters=3, warmup=1),
+        "library_ms": None, "library_note": "no single PyTorch call computes the scan",
+        "bound_ms": r_bound, "bound_by": r_by,
+    }
+    del r_in
+    for row in (m_row, r_row):
+        row["kernel_ms"] = row["ms"]
+        log(f"[scans] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, library: none, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, datasheet peaks)")
+    return [m_row, r_row]
+
+
+# parameter leaves checked per path: (path in the tree, shape, dtype name)
+def _expected_leaves(cfg):
+    L, D, H, KV, hd = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    head = [(("lm_head",), (cfg.padded_vocab, D), "bfloat16")]
+    if cfg.mamba is not None:
+        mc = cfg.mamba
+        Din, Hm = mc.d_inner(D), mc.n_heads(D)
+        run = next(i for i, b in enumerate(cfg.blocks) if b != "mamba2")  # first run of mamba2
+        proj = 2 * Din + 2 * mc.ngroups * mc.d_state + Hm
+        return head + [
+            (("layers", 0, "mixer", "in_proj"), (run, D, proj), "bfloat16"),
+            (("layers", 0, "mixer", "A_log"), (run, Hm), "float32"),
+            (("layers", 0, "mixer", "out_proj"), (run, Din, D), "bfloat16"),
+            (("shared_block", "attn", "wq"), (D, H, hd), "bfloat16"),
+            (("shared_block", "attn", "wk"), (D, KV, hd), "bfloat16"),
+            (("shared_block", "ffn", "wi"), (D, cfg.d_ff), "bfloat16")]
+    if cfg.rwkv is not None:
+        rh = D // cfg.rwkv.head_dim
+        return head + [
+            (("layers", 0, "tm", "wr"), (L, D, D), "bfloat16"),
+            (("layers", 0, "tm", "u"), (L, rh, cfg.rwkv.head_dim), "float32"),
+            (("layers", 0, "tm", "w0"), (L, D), "float32"),
+            (("layers", 0, "tm", "cm_k"), (L, D, cfg.d_ff), "bfloat16"),
+            (("ln0", "scale"), (D,), "bfloat16")]
+    return head + [
+        (("layers", 0, "attn", "wq"), (L, D, H, hd), "bfloat16"),
+        (("layers", 0, "attn", "wk"), (L, D, KV, hd), "bfloat16"),
+        (("layers", 0, "attn", "wo"), (L, H, hd, D), "bfloat16"),
+        (("layers", 0, "ffn", "wi"), (L, D, cfg.d_ff), "bfloat16")]
+
+
+def _expected_launches(cfg):
+    n = {kind: sum(b == kind for b in cfg.blocks)
+         for kind in ("attn", "shared_attn", "mamba2", "rwkv6")}
+    n_attn = n["attn"] + n["shared_attn"]
+    return {"flash_attention_fwd": n_attn, "flash_decode": n_attn * GEN,
+            "mamba2_scan": n["mamba2"], "rwkv6_scan": n["rwkv6"]}
+
+
+def phase_main(torch, smi, arch, prompt):
+    """Serve one architecture at full width; returns its readings."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import (make_decode_step, make_generate_loop,
                                           make_prefill_step)
     from repro_torch.models import build_model
 
-    cfg = get_config(ARCH)
+    tag = f"[main {arch}]"
+    cfg = get_config(arch)
     model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    L, D, H, KV, hd = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    for leaf, shape in ((params["layers"][0]["attn"]["wq"], (L, D, H, hd)),
-                        (params["layers"][0]["attn"]["wk"], (L, D, KV, hd)),
-                        (params["layers"][0]["attn"]["wo"], (L, H, hd, D)),
-                        (params["layers"][0]["ffn"]["wi"], (L, D, cfg.d_ff)),
-                        (params["lm_head"], (cfg.padded_vocab, D))):
-        if tuple(leaf.shape) != shape or leaf.dtype != torch.bfloat16:
-            raise AssertionError(f"parameter {tuple(leaf.shape)} {leaf.dtype}, "
-                                 f"expected {shape} bfloat16")
+    t_init = time.perf_counter() - t0
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    for path, shape, dname in _expected_leaves(cfg):
+        leaf = params
+        for key in path:
+            leaf = leaf[key]
+        if tuple(leaf.shape) != shape or leaf.dtype != dtypes[dname]:
+            raise AssertionError(f"{arch}: parameter {path} is {tuple(leaf.shape)} {leaf.dtype}, "
+                                 f"expected {shape} {dname}")
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"[main] {cfg.name}: {n_params / 1e9:.3f} B parameters ({cfg.param_dtype}) "
-        f"initialised on the card in {time.perf_counter() - t0:.1f} s; reading them once "
-        f"takes {n_params * 2 / PEAK_BYTES * 1e3:.3f} ms at the datasheet rate (the "
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    floor_ms = n_bytes / PEAK_BYTES * 1e3
+    log(f"{tag} {n_params / 1e9:.3f} B parameters ({n_bytes / 1e9:.2f} GB) initialised on "
+        f"the card in {t_init:.1f} s (peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+        f"allocated); reading them once takes {floor_ms:.3f} ms at the datasheet rate (the "
         f"decode-step floor)")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, prompt), generator=gen,
                                      device="cuda")}
-    max_len = PROMPT + GEN + 1
+    max_len = prompt + GEN + 1
     prefill = make_prefill_step(model, max_len)
     generate = make_generate_loop(model, GEN)
 
@@ -399,87 +703,124 @@ def phase_main(torch, smi):
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     counts = ops.launch_counts()
-    log(f"[main] launches during the served run: {counts}")
-    want = {"flash_attention_fwd": cfg.n_layers, "flash_decode": cfg.n_layers * GEN}
+    log(f"{tag} launches during the served run: {counts}")
+    want = _expected_launches(cfg)
     if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
+        raise AssertionError(f"{arch}: launch counts {counts}, expected {want}")
     if toks.shape != (BATCH, GEN) or toks.min().item() < 0 \
             or toks.max().item() >= cfg.vocab_size:
-        raise AssertionError(f"bad tokens: shape {tuple(toks.shape)}, "
+        raise AssertionError(f"{arch}: bad tokens: shape {tuple(toks.shape)}, "
                              f"range {toks.min().item()}..{toks.max().item()}")
     pf_ms = min(t_prefill) * 1e3
     dec_ms = (t_gen * 1e3 - pf_ms) / GEN
-    log(f"[main] prefill {pf_ms:.2f} ms (min of {[round(t * 1e3, 2) for t in t_prefill]}), "
-        f"decode {dec_ms:.3f} ms/step, {BATCH * GEN / t_gen:.1f} tok/s "
-        f"(generate {t_gen * 1e3:.1f} ms for {BATCH}x{GEN} tokens) on {smi}")
+    log(f"{tag} prefill {pf_ms:.2f} ms (min of {[round(t * 1e3, 2) for t in t_prefill]}), "
+        f"decode {dec_ms:.3f} ms/step (floor {floor_ms:.3f}), {BATCH * GEN / t_gen:.1f} tok/s "
+        f"(generate {t_gen * 1e3:.1f} ms for {BATCH}x{GEN} tokens, prompt {prompt}) on {smi}")
 
     # where the time goes: a profiled prefill and a profiled window of decode steps
-    (lk, ck), _ = _profile(torch, "prefill", lambda: prefill(params, batch))
+    (lk, ck), pf_prof = _profile(torch, f"{arch} prefill", lambda: prefill(params, batch))
     kdec = make_decode_step(model)
     tok = lk[:, :cfg.vocab_size].argmax(-1)
 
     def decode_window(n=8):
         for t in range(n):
-            pos = torch.full((BATCH,), PROMPT + t, dtype=torch.int32, device="cuda")
+            pos = torch.full((BATCH,), prompt + t, dtype=torch.int32, device="cuda")
             kdec(params, ck, tok, pos)
 
-    _profile(torch, "decode x8", decode_window)
+    _, dec_prof = _profile(torch, f"{arch} decode x8", decode_window)
+    del ck
 
     # teacher-forced parity: kernel path vs plain path, both fed the served
     # tokens (the prefill's argmax, then each step's)
     V = cfg.vocab_size
     inputs = torch.cat([tok[:, None], toks[:, :-1]], dim=1)
-    plain = build_model(replace(cfg, attn_impl="ref"))
+    plain = build_model(replace(cfg, attn_impl="ref", scan_impl="ref"))
     want = _teacher_forced(torch, make_prefill_step(plain, max_len), make_decode_step(plain),
-                           params, batch, inputs)
-    got = _teacher_forced(torch, prefill, kdec, params, batch, inputs)
+                           params, batch, inputs, prompt)
+    got = _teacher_forced(torch, prefill, kdec, params, batch, inputs, prompt)
     for t in range(GEN):
         if not torch.equal(got[0][t + 1][:, :V].argmax(-1), toks[:, t]):
-            raise AssertionError(f"step {t}: the served tokens are not the kernel "
+            raise AssertionError(f"{arch} step {t}: the served tokens are not the kernel "
                                  f"path's argmax")
     agree = sum((g[:, :V].argmax(-1) == w[:, :V].argmax(-1)).sum().item()
                 for g, w in zip(got[0][1:], want[0][1:]))
-    sound = _parity("kernel path", got, want)
-    log(f"[main] greedy choice of the kernel and plain paths agrees on "
+    log(f"{tag} greedy choice of the kernel and plain paths agrees on "
         f"{agree}/{BATCH * GEN} tokens")
-    if sound["logits_beyond"] or sound["cache_beyond"]:
-        raise AssertionError(f"kernel-path logits or cache differ from the plain path "
-                             f"beyond atol {LIMIT_ATOL} + rtol {LIMIT_RTOL}: {sound}")
+    floor = None
+    if cfg.mamba is not None or cfg.rwkv is not None:
+        # SSM paths: held to twice the noise floor, per leaf kind.  The
+        # floor is the plain path with the scan's arithmetic as the kernel
+        # does it (fp32 on the same bf16 values, the kernel's chunk).  The
+        # logits alone do not resolve every state fault (a zeroed prefill
+        # state moves zamba2's logits by less than the floor allows); the
+        # primed cache, compared leaf by leaf, does.
+        with _planted(ops, **_floor_scan(cfg)):
+            floor = _rel_by_kind(_teacher_forced(torch, make_prefill_step(plain, max_len),
+                                                 make_decode_step(plain), params, batch,
+                                                 inputs, prompt), want)
+        log(f"{tag} noise floor (plain path, scan in the kernel's arithmetic, vs plain "
+            f"path): relative rms error by leaf {_fmt(floor)}")
+        sound = {"relative": _rel_by_kind(got, want),
+                 "relative_limit": {k: 2 * v + 1e-3 for k, v in floor.items()}}
+        bad = _beyond_floor(sound["relative"], floor)
+        log(f"{tag} kernel path: relative rms error by leaf {_fmt(sound['relative'])}; "
+            f"limit 2 x floor + 1e-3 per leaf kind: {'FAIL ' + str(bad) if bad else 'ok'}")
+        if bad:
+            raise AssertionError(f"{arch}: kernel-path leaves {bad} differ from the plain path "
+                                 f"by more than twice the noise floor")
+    else:
+        sound = _parity(f"{arch} kernel path", got, want)
+        if sound["logits_beyond"] or sound["cache_beyond"]:
+            raise AssertionError(f"{arch}: kernel-path logits or cache differ from the plain "
+                                 f"path beyond atol {LIMIT_ATOL} + rtol {LIMIT_RTOL}: {sound}")
     del got
 
     # controls: the same check on paths with planted faults
     controls = []
-    for fault, must_catch, patch in _faults(torch, ops, cfg.n_heads, cfg.n_kv_heads):
+    for fault, must_catch, patch in _faults(torch, ops, cfg):
         with _planted(ops, **patch):
-            reading = _parity(f"control, {fault}",
-                              _teacher_forced(torch, prefill, kdec, params, batch, inputs), want)
-        caught = bool(reading["logits_beyond"] or reading["cache_beyond"])
+            out = _teacher_forced(torch, prefill, kdec, params, batch, inputs, prompt)
+        if floor is not None:
+            reading = {"relative": _rel_by_kind(out, want)}
+            caught = bool(_beyond_floor(reading["relative"], floor))
+            log(f"{tag} control, {fault}: relative rms error by leaf "
+                f"{_fmt(reading['relative'])}; {'rejected' if caught else 'NOT rejected'}")
+        else:
+            reading = _parity(f"{arch} control, {fault}", out, want)
+            caught = bool(reading["logits_beyond"] or reading["cache_beyond"])
+        del out
         if must_catch and not caught:
-            raise AssertionError(f"control {fault}: the limit does not reject it")
+            raise AssertionError(f"{arch} control {fault}: the limit does not reject it")
         controls.append(dict(reading, fault=fault, caught=caught))
-    return {"prefill_ms": pf_ms, "decode_ms_per_step": dec_ms,
+    return {"arch": arch, "prompt": prompt, "params": n_params, "decode_floor_ms": floor_ms,
+            "prefill_ms": pf_ms, "decode_ms_per_step": dec_ms,
             "tok_per_s": BATCH * GEN / t_gen, "launches": counts, "parity": sound,
-            "greedy_agree": agree, "controls": controls}
+            "greedy_agree": agree, "noise_floor": floor, "controls": controls,
+            "profile": {"prefill": pf_prof, "decode_x8": dec_prof}}
 
 
-def _teacher_forced(torch, prefill, decode, params, batch, inputs):
+def _teacher_forced(torch, prefill, decode, params, batch, inputs, prompt):
     """Prefill, then one decode step per column of ``inputs``; the logits of
-    every step (prefill first) and the final cache."""
+    every step (prefill first), the final cache, and a copy of the cache as
+    the prefill left it (the decode steps update the cache in place)."""
     logits, cache = prefill(params, batch)
+    primed = [{k: t.clone() for k, t in c.items()} for c in cache]
     out = [logits]
     for t in range(inputs.shape[1]):
-        pos = torch.full((BATCH,), PROMPT + t, dtype=torch.int32, device="cuda")
+        pos = torch.full((BATCH,), prompt + t, dtype=torch.int32, device="cuda")
         logits, cache = decode(params, cache, inputs[:, t], pos)
         out.append(logits)
-    return out, cache
+    return out, cache, primed
 
 
 def _parity(name, got, want):
-    """Logits of every step and the final cache of a teacher-forced run
-    against the plain path's: max abs error and elements beyond the limit."""
+    """Logits of every step and the cache (final and as primed by the
+    prefill) of a teacher-forced run against the plain path's: max abs error
+    and elements beyond the limit atol + rtol * |plain|."""
     res = {}
     for part, g, w in (("logits", got[0], want[0]),
-                       ("cache", list(_leaves(got[1])), list(_leaves(want[1])))):
+                       ("cache", [*_leaves(got[1]), *_leaves(got[2])],
+                        [*_leaves(want[1]), *_leaves(want[2])])):
         readings = [beyond(a, b, LIMIT_ATOL, LIMIT_RTOL) for a, b in zip(g, w)]
         res[f"{part}_max_abs_err"] = max(r[0] for r in readings)
         res[f"{part}_beyond"] = sum(r[1] for r in readings)
@@ -492,11 +833,79 @@ def _parity(name, got, want):
     return res
 
 
-def _faults(torch, ops, H, KV):
+def _rel_by_kind(got, want):
+    """Relative rms error, max over the leaves of each kind: "logits" (every
+    step) and each cache key (final and primed caches together)."""
+    out = {"logits": max(_relrms(a, b) for a, b in zip(got[0], want[0]))}
+    for g_cache, w_cache in ((got[1], want[1]), (got[2], want[2])):
+        for g, w in zip(g_cache, w_cache):
+            for key in w:
+                out[key] = max(out.get(key, 0.0), _relrms(g[key], w[key]))
+    return out
+
+
+def _relrms(a, b):
+    b = b.float()
+    return ((a.float() - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt().clamp_min(1e-30)).item()
+
+
+def _beyond_floor(rel, floor):
+    return sorted(k for k, v in rel.items() if not v <= 2 * floor[k] + 1e-3)
+
+
+def _fmt(rel):
+    return "{" + ", ".join(f"{k}: {v:.2e}" for k, v in rel.items()) + "}"
+
+
+def _floor_scan(cfg):
+    """Replacements for ops: the plain chunked scan with the kernel's
+    arithmetic (fp32 on the same bf16 values) at the kernel's chunk."""
+    from repro_torch.kernels import ref
+
+    if cfg.mamba is not None:
+        def mamba2(x, dt, A, B, C, h0=None, impl="auto"):
+            y, h = ref.mamba2_scan_chunked(x.float(), dt, A, B.float(), C.float(), h0,
+                                           chunk=min(MAMBA_CHUNK, x.shape[1]))
+            return y.to(x.dtype), h
+        return {"mamba2": mamba2}
+
+    def rwkv6(r, k, v, w, u, s0=None, impl="auto"):
+        y, s = ref.rwkv6_scan_chunked(r.float(), k.float(), v.float(), w, u, s0,
+                                      chunk=min(RWKV_CHUNK, r.shape[1]))
+        return y.to(v.dtype), s
+    return {"rwkv6": rwkv6}
+
+
+def _faults(torch, ops, cfg):
     """(fault, whether the limit must reject it, replacements for ops).
     Each replacement calls the sound front door (and so the kernel) on
-    altered inputs."""
+    altered inputs or alters its outputs."""
+    if cfg.mamba is not None:
+        mamba2 = ops.mamba2
+
+        def dt_halved(x, dt, A, B, C, h0=None, impl="auto"):
+            return mamba2(x, dt * 0.5, A, B, C, h0, impl)
+
+        def state_zeroed(x, dt, A, B, C, h0=None, impl="auto"):
+            y, h = mamba2(x, dt, A, B, C, h0, impl)
+            return y, torch.zeros_like(h)
+
+        return [("prefill scan fed dt/2", True, {"mamba2": dt_halved}),
+                ("prefill scan's final state zeroed", True, {"mamba2": state_zeroed})]
+    if cfg.rwkv is not None:
+        rwkv6 = ops.rwkv6
+
+        def wkv_zeroed(r, k, v, w, u, s0=None, impl="auto"):
+            y, s = rwkv6(r, k, v, w, u, s0, impl)
+            return y, torch.zeros_like(s)
+
+        def w_halved(r, k, v, w, u, s0=None, impl="auto"):
+            return rwkv6(r, k, v, w * 0.5, u, s0, impl)
+
+        return [("prefill scan's final state zeroed", True, {"rwkv6": wkv_zeroed}),
+                ("prefill scan fed w/2", True, {"rwkv6": w_halved})]
     attention, decode_attention = ops.attention, ops.decode_attention
+    H, KV = cfg.n_heads, cfg.n_kv_heads
     G = H // KV
     # query head h at position (h % KV) * G + h // KV reads KV head h % KV
     perm = torch.tensor([(h % KV) * G + h // KV for h in range(H)], device="cuda")
@@ -588,11 +997,15 @@ def main() -> int:
 
     smi = phase_device(torch)
     phase_build()
-    rows = phase_kernels(torch)
-    main_res = phase_main(torch, smi)
-    for row in rows:
-        row["launches"] = main_res["launches"][row["name"]]
-    log("[main] " + json.dumps(dict(main_res, card=smi)))
+    rows = phase_kernels(torch) + phase_scans(torch)
+    results = []
+    for arch, prompt in PATHS:
+        results.append(phase_main(torch, smi, arch, prompt))
+        log(f"[main {arch}] " + json.dumps(dict(results[-1], card=smi)))
+        gc.collect()  # free the model before the next one loads
+        torch.cuda.empty_cache()
+    for row in rows:  # launches on the three main paths together
+        row["launches"] = sum(r["launches"][row["name"]] for r in results)
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

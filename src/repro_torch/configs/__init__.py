@@ -38,7 +38,7 @@ ALIASES = {
     "rwkv6-7b": "rwkv6_7b",
 }
 
-PORTED = ("tinyllama_1_1b",)
+PORTED = ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b")
 
 
 def resolve(arch: str) -> str:

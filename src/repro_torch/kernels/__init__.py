@@ -1,2 +1,2 @@
-"""Attention kernels of the PyTorch port: plain-torch oracles (``ref``),
+"""Kernels of the PyTorch port: plain-torch oracles (``ref``),
 hand-written Hopper kernels with their wrappers, and the ``ops`` front door."""

@@ -1,9 +1,10 @@
-"""Front door for the attention kernels, with implementation selection.
+"""Front door for every kernel, with implementation selection.
 
 ``impl``:
 
 * ``"ref"``   — the memory-efficient plain-torch twin (blockwise online
-  softmax for attention; the naive oracle for decode, as in the reference)
+  softmax for attention; the naive oracle for decode, as in the reference;
+  the chunked scans at the reference's chunk lengths)
 * ``"cuda"``  — the hand-written Hopper kernel; on CPU tensors its wrapper
   runs the kernel's plain version
 * ``"auto"``  — ``cuda`` for tensors on the card, ``ref`` elsewhere
@@ -11,13 +12,18 @@
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import mamba2_scan as _mamba2
 from . import ref
+from . import rwkv6_scan as _rwkv6
+
+_KERNELS = {"flash_attention_fwd": _flash, "flash_decode": _decode,
+            "mamba2_scan": _mamba2, "rwkv6_scan": _rwkv6}
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -50,11 +56,45 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise ValueError(f"unknown impl {impl!r}")
 
 
+def mamba2(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+           C: torch.Tensor, h0: Optional[torch.Tensor] = None,
+           impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan -> (y, h_final)."""
+    impl = _resolve(impl, x)
+    if impl == "ref":
+        return _mamba2.mamba2_plain(x, dt, A, B, C, h0)
+    if impl == "cuda":
+        return _mamba2.mamba2_scan(x, dt, A, B, C, h0)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def mamba2_decode(x, dt, A, B, C, h):
+    """Single-token SSD step (serving): plain torch, as in the reference."""
+    return ref.mamba2_decode_step(x, dt, A, B, C, h)
+
+
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+          u: torch.Tensor, s0: Optional[torch.Tensor] = None,
+          impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV6 scan -> (y, s_final)."""
+    impl = _resolve(impl, r)
+    if impl == "ref":
+        return _rwkv6.rwkv6_plain(r, k, v, w, u, s0)
+    if impl == "cuda":
+        return _rwkv6.rwkv6_scan(r, k, v, w, u, s0)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def rwkv6_decode(r, k, v, w, u, s):
+    """Single-token WKV6 step (serving): plain torch, as in the reference."""
+    return ref.rwkv6_decode_step(r, k, v, w, u, s)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
-    return {"flash_attention_fwd": _flash.launches, "flash_decode": _decode.launches}
+    return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _flash.launches = 0
-    _decode.launches = 0
+    for mod in _KERNELS.values():
+        mod.launches = 0

@@ -3,6 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         [--smoke] [--batch 4] [--prompt-len 32] [--gen 16] [--device cuda]
 
+``--arch`` takes the ported ids: tinyllama-1.1b, zamba2-1.2b, rwkv6-7b.  On
+the CPU the SSM archs follow the reference's chunked scans, which need the
+prompt to be a multiple of the chunk (128 for Mamba2, 64 for RWKV6) or
+shorter than it; the CUDA kernels take any prompt length.  Prints the warm
+generate time and tok/s, the launch counts, then prefill ms and decode ms
+per step.
+
 Runs on the card unless ``--device cpu`` is given; with no card and no
 ``--device cpu`` it raises.  Weights are random, from a seeded
 ``torch.Generator`` on the device.  The first generate call includes the
@@ -18,7 +25,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
-from repro_torch.launch.steps import make_generate_loop
+from repro_torch.launch.steps import make_generate_loop, make_prefill_step
 from repro_torch.models import build_model
 
 
@@ -69,6 +76,16 @@ def main(argv=None) -> None:
           f"({tput:.0f} tok/s)")
     print("[serve] sample:", toks[0, :12].tolist())
     print("[serve] kernel launches (warm run):", ops.launch_counts())
+    prefill = make_prefill_step(model, max_len)
+    t_prefill = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        _sync(dev)
+        t_prefill.append(time.perf_counter() - t0)
+    pf = min(t_prefill)
+    print(f"[serve] prefill {pf*1e3:.2f} ms (min of 3), "
+          f"decode {(t_warm - pf)*1e3/args.gen:.3f} ms/step (warm generate less prefill)")
 
 
 if __name__ == "__main__":

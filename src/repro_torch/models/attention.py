@@ -44,9 +44,10 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _qkv(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
          positions: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    q = apply_rope(_proj(x, p["wq"]), positions, cfg.rope_theta)
-    k = apply_rope(_proj(x, p["wk"]), positions, cfg.rope_theta)
-    v = _proj(x, p["wv"])
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.rope_type == "standard":  # "none": no position encoding
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 

@@ -5,9 +5,9 @@ the port imports nothing of that package.  The fields and their defaults
 are the reference's, with two differences:
 
 * ``param_tdtype``/``compute_tdtype`` return ``torch.dtype``s;
-* ``attn_impl`` defaults to ``"auto"``: the hand-written CUDA kernels for
-  tensors on the card, the plain ``ref`` path for tensors on the CPU
-  (:func:`repro_torch.kernels.ops._resolve`).
+* ``attn_impl`` and ``scan_impl`` default to ``"auto"``: the hand-written
+  CUDA kernels for tensors on the card, the plain ``ref`` path for tensors
+  on the CPU (:func:`repro_torch.kernels.ops._resolve`).
 """
 
 from __future__ import annotations
@@ -109,7 +109,7 @@ class ModelConfig:
     remat: bool = True
     remat_policy: str = "nothing"
     attn_impl: str = "auto"  # kernels/ops impl selector: ref|cuda|auto
-    scan_impl: str = "ref"
+    scan_impl: str = "auto"  # kernels/ops impl selector: ref|cuda|auto
     sharding_profile: str = "fsdp"
 
     @property
@@ -136,23 +136,26 @@ class ModelConfig:
         return _TORCH_DTYPES[self.compute_dtype]
 
 
+_PORTED_BLOCKS = ("attn", "mamba2", "shared_attn", "rwkv6")
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for any feature the port lacks so far.
 
     The port covers the dense GQA decoder with RMSNorm, standard RoPE and a
-    SwiGLU MLP (TinyLlama).  Every other branch of the reference waits for
-    a later slice, and refusing it here keeps a config from silently
+    SwiGLU MLP (TinyLlama), Mamba2 blocks with a shared attention block
+    (Zamba2) and RWKV6 blocks.  Every other branch of the reference waits
+    for a later slice, and refusing it here keeps a config from silently
     running a different model.
     """
+    unported = sorted(set(cfg.blocks) - set(_PORTED_BLOCKS))
     missing = [name for name, on in (
         ("moe", cfg.moe is not None),
         ("mla", cfg.mla is not None),
-        ("mamba2", cfg.mamba is not None),
-        ("rwkv6", cfg.rwkv is not None),
         ("enc_dec", cfg.enc_dec is not None),
         ("visual_stub", cfg.visual_stub),
-        ("block_pattern", any(b != "attn" for b in cfg.blocks)),
-        ("rope_type=" + cfg.rope_type, cfg.rope_type != "standard"),
+        ("block kinds " + ",".join(unported), bool(unported)),
+        ("rope_type=" + cfg.rope_type, cfg.rope_type not in ("standard", "none")),
         ("norm=" + cfg.norm, cfg.norm != "rmsnorm"),
         ("norm_unit_offset", cfg.norm_unit_offset),
         ("scale_embed", cfg.scale_embed),
@@ -165,3 +168,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {', '.join(missing)}")
+    for kind, sub in (("mamba2", cfg.mamba), ("rwkv6", cfg.rwkv)):
+        if kind in cfg.blocks and sub is None:
+            raise ValueError(f"{cfg.name}: {kind} blocks need cfg.{'mamba' if kind == 'mamba2' else 'rwkv'}")

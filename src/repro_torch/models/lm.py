@@ -1,11 +1,14 @@
 """Decoder-only LM over a per-layer block pattern (PyTorch port).
 
 Twin of the reference's ``models/lm.py`` for the blocks ported so far:
-``attn`` blocks with a dense ``mlp`` FFN.  Layers are grouped into runs of
-identical (block kind, ffn kind), and each run's parameters are stacked
-with a leading layer axis, so the parameter tree has the reference's leaf
-names and shapes.  The reference's ``lax.scan`` over a stack is a Python
-loop over the leading axis here.
+``attn`` blocks with a dense ``mlp`` FFN (TinyLlama), ``mamba2`` blocks with
+a ``shared_attn`` block (Zamba2), and ``rwkv6`` blocks.  Layers are grouped
+into runs of identical (block kind, ffn kind); each ``shared_attn`` stands
+alone.  Each run's parameters are stacked with a leading layer axis, and a
+``shared_attn`` group holds ``{}`` in ``layers`` while the one shared block
+sits unstacked in ``shared_block``, so the parameter tree has the
+reference's leaf names and shapes.  The reference's ``lax.scan`` over a
+stack is a Python loop over the leading axis here.
 
 API:
   init(cfg, gen) -> params
@@ -21,12 +24,13 @@ to keep the reference's signatures.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
 
 from . import attention as attn
 from . import mlp as mlpm
+from . import ssm
 from .common import (apply_norm, dense_init, embed_tokens, embedding_init,
                      lm_head_logits, norm_init, positions_for)
 from .config import ModelConfig, check_supported
@@ -36,15 +40,24 @@ Tree = Dict[str, Any]
 
 @dataclass(frozen=True)
 class LayerGroup:
-    kind: str      # attn (the only block ported so far)
-    ffn: str       # mlp
+    kind: str      # attn | mamba2 | rwkv6 | shared_attn
+    ffn: str       # mlp | none
     start: int     # absolute index of first layer in the group
     count: int
 
 
 def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
     check_supported(cfg)
-    return [LayerGroup("attn", "mlp", 0, cfg.n_layers)]
+    groups: List[LayerGroup] = []
+    for i, kind in enumerate(cfg.blocks):
+        sig = (kind, "none" if kind in ("mamba2", "rwkv6") else "mlp")
+        if groups and kind != "shared_attn" \
+                and (groups[-1].kind, groups[-1].ffn) == sig:
+            g = groups[-1]
+            groups[-1] = LayerGroup(g.kind, g.ffn, g.start, g.count + 1)
+        else:
+            groups.append(LayerGroup(kind, sig[1], i, 1))
+    return groups
 
 
 def _index(tree: Any, i: int) -> Any:
@@ -54,35 +67,74 @@ def _index(tree: Any, i: int) -> Any:
     return tree[i]
 
 
-def _stack(trees: List[Tree]) -> Tree:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked(make: Callable[[], Tree], count: int) -> Tree:
+    """``count`` trees from ``make`` stacked on a leading axis, filled layer
+    by layer so that only one unstacked layer is alive at a time."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((count, *t.shape))
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i] = src
+
+    first = make()
+    out = alloc(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, count):
+        put(out, make(), i)
+    return out
+
+
+def _walk(cfg: ModelConfig, params: Tree) -> Iterator[Tuple[int, int, str, Tree]]:
+    """(group index, index in the group, block kind, layer params) for every
+    layer in order; a ``shared_attn`` layer gets the shared block."""
+    for gi, g in enumerate(layer_groups(cfg)):
+        for i in range(g.count):
+            if g.kind == "shared_attn":
+                yield gi, i, "attn", params["shared_block"]
+            else:
+                yield gi, i, g.kind, _index(params["layers"][gi], i)
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _block_init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
-    return {
-        "ln1": norm_init(cfg, gen.device),
-        "attn": attn.attn_init(cfg, gen),
-        "ffn": mlpm.mlp_init(cfg, gen),
-        "ln2": norm_init(cfg, gen.device),
-    }
+def _block_init(cfg: ModelConfig, kind: str, gen: torch.Generator) -> Tree:
+    dev = gen.device
+    if kind == "attn":
+        return {"ln1": norm_init(cfg, dev), "attn": attn.attn_init(cfg, gen),
+                "ffn": mlpm.mlp_init(cfg, gen), "ln2": norm_init(cfg, dev)}
+    if kind == "mamba2":
+        return {"ln1": norm_init(cfg, dev), "mixer": ssm.mamba2_init(cfg, gen)}
+    if kind == "rwkv6":
+        return {"ln1": norm_init(cfg, dev), "tm": ssm.rwkv6_init(cfg, gen),
+                "ln2": norm_init(cfg, dev)}
+    raise ValueError(kind)
 
 
 def init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
     """Random weights on ``gen.device`` with the reference's distributions."""
-    layers = [_stack([_block_init(cfg, gen) for _ in range(g.count)])
+    layers = [{} if g.kind == "shared_attn"
+              else _stacked(lambda: _block_init(cfg, g.kind, gen), g.count)
               for g in layer_groups(cfg)]
-    return {
+    params: Tree = {
         "embed": embedding_init(cfg, gen),
         "final_norm": norm_init(cfg, gen.device),
         "layers": layers,
-        "lm_head": dense_init(gen, cfg.d_model, (cfg.padded_vocab,),
-                              cfg.param_tdtype()).t().contiguous(),
     }
+    if "shared_attn" in cfg.blocks:
+        params["shared_block"] = _block_init(cfg, "attn", gen)
+    params["lm_head"] = dense_init(gen, cfg.d_model, (cfg.padded_vocab,),
+                                   cfg.param_tdtype()).t().contiguous()
+    if cfg.rwkv is not None:
+        params["ln0"] = norm_init(cfg, gen.device)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -94,32 +146,110 @@ def _attn_layer(cfg: ModelConfig, lp: Tree, x: torch.Tensor, mix) -> torch.Tenso
     return x + mlpm.mlp_apply(cfg, lp["ffn"], apply_norm(cfg, lp["ln2"], x))
 
 
-def logits_fn(cfg: ModelConfig, params: Tree, batch: Dict) -> torch.Tensor:
-    """Full-sequence logits (B,S,V) — tiny shapes and tests only."""
-    x = embed_tokens(cfg, params["embed"], batch["tokens"])
-    positions = positions_for(cfg, batch)
-    for gi, g in enumerate(layer_groups(cfg)):
-        for i in range(g.count):
-            lp = _index(params["layers"][gi], i)
-            x = _attn_layer(cfg, lp, x,
-                            lambda h: attn.attn_apply(cfg, lp["attn"], h, positions))
+def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor) -> torch.Tensor:
+    x = embed_tokens(cfg, params["embed"], tokens)
+    if cfg.rwkv is not None:
+        x = apply_norm(cfg, params["ln0"], x)
+    return x
+
+
+def _head(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_head_logits(cfg, params["embed"], params.get("lm_head"), x)
+
+
+def _apply_layer(cfg: ModelConfig, kind: str, lp: Tree, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    if kind == "attn":
+        return _attn_layer(cfg, lp, x, lambda h: attn.attn_apply(cfg, lp["attn"], h, positions))
+    if kind == "mamba2":
+        return x + ssm.mamba2_apply(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x))
+    if kind == "rwkv6":
+        x = x + ssm.rwkv6_time_mix(cfg, lp["tm"], apply_norm(cfg, lp["ln1"], x))[0]
+        return x + ssm.rwkv6_channel_mix(cfg, lp["tm"], apply_norm(cfg, lp["ln2"], x))[0]
+    raise ValueError(kind)
+
+
+def logits_fn(cfg: ModelConfig, params: Tree, batch: Dict) -> torch.Tensor:
+    """Full-sequence logits (B,S,V) — tiny shapes and tests only."""
+    x = _embed(cfg, params, batch["tokens"])
+    positions = positions_for(cfg, batch)
+    for _, _, kind, lp in _walk(cfg, params):
+        x = _apply_layer(cfg, kind, lp, x, positions)
+    return _head(cfg, params, x)
 
 
 # ---------------------------------------------------------------------------
 # serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
+def _cache_one(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+               dt: torch.dtype, device: torch.device) -> Tree:
+    if kind in ("attn", "shared_attn"):
+        return attn.attn_init_cache(cfg, batch, max_len, dt, device)
+    if kind == "mamba2":
+        return ssm.mamba2_init_state(cfg, batch, dt, device)
+    if kind == "rwkv6":
+        return ssm.rwkv6_init_state(cfg, batch, dt, device)
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> List[Tree]:
-    """One stacked cache tree per layer group: k/v (count, B, max_len, KV, hd)."""
+    """One stacked cache tree per layer group, each leaf (count, ...)."""
     dt = cfg.compute_tdtype()
     out = []
     for g in layer_groups(cfg):
-        one = attn.attn_init_cache(cfg, batch, max_len, dt, device)
-        out.append({k: torch.zeros((g.count, *v.shape), dtype=dt, device=device)
+        one = _cache_one(cfg, g.kind, batch, max_len, dt, device)
+        out.append({k: torch.zeros((g.count, *v.shape), dtype=v.dtype, device=device)
                     for k, v in one.items()})
     return out
+
+
+def _write(cache: Tree, state: Tree) -> None:
+    for k, v in state.items():
+        if v.shape != cache[k].shape:  # copy_ would broadcast a short state
+            raise ValueError(f"cache {k!r} is {tuple(cache[k].shape)}, "
+                             f"state is {tuple(v.shape)}")
+        cache[k].copy_(v)
+
+
+def _prefill_layer(cfg: ModelConfig, kind: str, lp: Tree, x: torch.Tensor,
+                   positions: torch.Tensor, c: Tree) -> torch.Tensor:
+    """One layer over the prompt; writes its cache ``c`` in place."""
+    if kind == "attn":
+        return _attn_layer(cfg, lp, x, lambda h: attn.attn_prefill(
+            cfg, lp["attn"], h, positions, c)[0])
+    if kind == "mamba2":
+        out, state = ssm.mamba2_prefill(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x))
+        _write(c, state)
+        return x + out
+    if kind == "rwkv6":
+        tm, (last_x, s) = ssm.rwkv6_time_mix(cfg, lp["tm"], apply_norm(cfg, lp["ln1"], x))
+        x = x + tm
+        cm, cm_last = ssm.rwkv6_channel_mix(cfg, lp["tm"], apply_norm(cfg, lp["ln2"], x))
+        _write(c, {"tm_x": last_x, "wkv": s, "cm_x": cm_last})
+        return x + cm
+    raise ValueError(kind)
+
+
+def _decode_layer(cfg: ModelConfig, kind: str, lp: Tree, x: torch.Tensor,
+                  pos: torch.Tensor, c: Tree) -> torch.Tensor:
+    """One layer for one token; writes its cache ``c`` in place."""
+    if kind == "attn":
+        return _attn_layer(cfg, lp, x, lambda h: attn.attn_decode(
+            cfg, lp["attn"], h, pos, c)[0])
+    if kind == "mamba2":
+        out, state = ssm.mamba2_decode(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x), c)
+        _write(c, state)
+        return x + out
+    if kind == "rwkv6":
+        tm, state = ssm.rwkv6_decode(cfg, lp["tm"], apply_norm(cfg, lp["ln1"], x), c)
+        x = x + tm
+        cm, state = ssm.rwkv6_channel_decode(cfg, lp["tm"], apply_norm(cfg, lp["ln2"], x),
+                                             state)
+        _write(c, state)
+        return x + cm
+    raise ValueError(kind)
 
 
 def prefill(cfg: ModelConfig, params: Tree, batch: Dict,
@@ -127,31 +257,18 @@ def prefill(cfg: ModelConfig, params: Tree, batch: Dict,
     """Process a prompt of S tokens; return last-position logits and the
     primed cache (max_len slots)."""
     tokens = batch["tokens"]
-    B, _ = tokens.shape
-    x = embed_tokens(cfg, params["embed"], tokens)
+    x = _embed(cfg, params, tokens)
     positions = positions_for(cfg, batch)
-    cache = init_cache(cfg, B, max_len, tokens.device)
-    for gi, g in enumerate(layer_groups(cfg)):
-        for i in range(g.count):
-            lp = _index(params["layers"][gi], i)
-            c = _index(cache[gi], i)
-            x = _attn_layer(cfg, lp, x, lambda h: attn.attn_prefill(
-                cfg, lp["attn"], h, positions, c)[0])
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = lm_head_logits(cfg, params["embed"], params.get("lm_head"), x[:, -1])
-    return logits, cache
+    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    for gi, i, kind, lp in _walk(cfg, params):
+        x = _prefill_layer(cfg, kind, lp, x, positions, _index(cache[gi], i))
+    return _head(cfg, params, x[:, -1]), cache
 
 
 def decode_step(cfg: ModelConfig, params: Tree, cache: List[Tree],
                 token: torch.Tensor, pos: torch.Tensor) -> tuple:
     """One decode step.  token: (B,), pos: (B,) int32 -> logits (B, V)."""
-    x = embed_tokens(cfg, params["embed"], token[:, None])
-    for gi, g in enumerate(layer_groups(cfg)):
-        for i in range(g.count):
-            lp = _index(params["layers"][gi], i)
-            c = _index(cache[gi], i)
-            x = _attn_layer(cfg, lp, x, lambda h: attn.attn_decode(
-                cfg, lp["attn"], h, pos, c)[0])
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = lm_head_logits(cfg, params["embed"], params.get("lm_head"), x[:, 0])
-    return logits, cache
+    x = _embed(cfg, params, token[:, None])
+    for gi, i, kind, lp in _walk(cfg, params):
+        x = _decode_layer(cfg, kind, lp, x, pos, _index(cache[gi], i))
+    return _head(cfg, params, x[:, 0]), cache

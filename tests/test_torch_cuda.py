@@ -10,6 +10,9 @@ import torch
 
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba2_scan as m2
+from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as r6
 
 
 @pytest.mark.cuda
@@ -31,3 +34,59 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
                                    dec.decode_plain(q[:, :, 0], k, k, length),
                                    atol=tol, rtol=tol)
         assert dec.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_scan_kernels_match_plain_versions_on_the_card():
+    """bf16 and fp32, a nonzero initial state, G > 1, strided views of one
+    projection (as the model hands them over), a ragged S against the token
+    recurrence; each call launches.  bf16 outputs are held against the
+    plain versions run in fp32 on the same bf16 values (the kernels'
+    arithmetic); RWKV6's decay lies on a 2^-6 grid so that both sides form
+    the same prefix sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        B, S, H, P, G, N = 2, 256, 8, 32, 2, 16
+        proj = rn(B, S, H * P + 2 * G * N).to(dtype)   # x | B | C, split as views
+        x = proj[..., :H * P].unflatten(-1, (H, P))
+        Bm = proj[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+        Cm = proj[..., H * P + G * N:].unflatten(-1, (G, N))
+        dt = torch.rand(B, S, H, generator=g, device="cuda") * 0.19 + 0.01
+        A = -(torch.rand(H, generator=g, device="cuda") * 1.5 + 0.5)
+        h0 = rn(B, H, P, N)
+        before = m2.launches
+        y, h = m2.mamba2_scan(x, dt, A, Bm, Cm, h0)
+        assert m2.launches == before + 1
+        want = m2.mamba2_plain(x.float(), dt, A, Bm.float(), Cm.float(), h0)
+        torch.testing.assert_close(y.float(), want[0], atol=tol, rtol=tol)
+        torch.testing.assert_close(h, want[1], atol=1e-4, rtol=1e-4)
+        y, h = m2.mamba2_scan(x[:, :200], dt[:, :200], A, Bm[:, :200], Cm[:, :200], h0)
+        want = ref.mamba2_scan_naive(x[:, :200].float(), dt[:, :200], A,
+                                     Bm[:, :200].float(), Cm[:, :200].float(), h0)
+        torch.testing.assert_close(y.float(), want[0], atol=tol, rtol=tol)
+        torch.testing.assert_close(h, want[1], atol=1e-4, rtol=1e-4)
+
+        B, S, H, K = 2, 256, 4, 64
+        r, k, v = rn(B, S, H, K).to(dtype), rn(B, S, H, K).to(dtype), rn(B, S, H, K).to(dtype)
+        w = -torch.clamp(torch.round(torch.rand(B, S, H, K, generator=g, device="cuda")
+                                     * 3 * 64), min=1) / 64
+        u, s0 = rn(H, K), rn(B, H, K, K)
+        before = r6.launches
+        y, s = r6.rwkv6_scan(r, k, v, w, u, s0)
+        assert r6.launches == before + 1
+        want = r6.rwkv6_plain(r.float(), k.float(), v.float(), w, u, s0)
+        rtol = 5e-5 if dtype == torch.float32 else tol
+        torch.testing.assert_close(y.float(), want[0], atol=rtol, rtol=rtol)
+        torch.testing.assert_close(s, want[1], atol=5e-5, rtol=5e-5)
+        y, s = r6.rwkv6_scan(r[:, :200], k[:, :200], v[:, :200], w[:, :200], u, s0)
+        want = ref.rwkv6_scan_naive(r[:, :200].float(), k[:, :200].float(),
+                                    v[:, :200].float(), w[:, :200], u, s0)
+        ntol = 2e-3 if dtype == torch.float32 else tol
+        torch.testing.assert_close(y.float(), want[0], atol=ntol, rtol=ntol)
+        torch.testing.assert_close(s, want[1], atol=2e-3, rtol=2e-3)

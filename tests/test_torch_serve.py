@@ -32,6 +32,7 @@ from repro_torch.launch import serve
 from repro_torch.launch.steps import make_decode_step, make_generate_loop, make_prefill_step
 from repro_torch.models import build_model
 from repro_torch.models.common import lm_head_logits
+from repro_torch.models.config import MLAConfig, MoEConfig
 
 TOL = 1e-4
 B, S, GEN = 2, 32, 6
@@ -91,7 +92,8 @@ def test_prefill_and_decode_match_jax(setup, impl):
         pos = torch.full((B,), S + t, dtype=torch.int32)
         logits, cache = step(params, cache, torch.tensor(fed[t]).long(), pos)
         close(logits, want[t + 1][0])
-    assert ops.launch_counts() == {"flash_attention_fwd": 0, "flash_decode": 0}
+    assert ops.launch_counts() == {"flash_attention_fwd": 0, "flash_decode": 0,
+                                   "mamba2_scan": 0, "rwkv6_scan": 0}
 
 
 def test_generate_tokens_identical_to_jax(setup):
@@ -167,7 +169,9 @@ def test_serve_cli_runs_on_cpu():
     out = res.stdout.splitlines()
     assert out[0].startswith("[serve] generated (2, 3) tokens")
     assert out[2] == "[serve] kernel launches (warm run): " \
-                     "{'flash_attention_fwd': 0, 'flash_decode': 0}"
+                     "{'flash_attention_fwd': 0, 'flash_decode': 0, 'mamba2_scan': 0, " \
+                     "'rwkv6_scan': 0}"
+    assert out[3].startswith("[serve] prefill ") and "ms/step" in out[3]
 
 
 def test_serve_without_gpu_raises(monkeypatch):
@@ -180,7 +184,8 @@ def test_serve_without_gpu_raises(monkeypatch):
     dict(norm="layernorm"), dict(norm_unit_offset=True), dict(scale_embed=True),
     dict(logit_softcap=30.0), dict(qkv_bias=True), dict(tie_embeddings=True),
     dict(parallel_block=True), dict(rope_type="mrope"), dict(visual_stub=True),
-    dict(block_pattern=("attn", "mamba2")), dict(mlp_act="gelu"),
+    dict(block_pattern=("attn", "mla")), dict(mlp_act="gelu"),
+    dict(mla=MLAConfig()), dict(moe=MoEConfig(num_experts=4, top_k=2, d_expert=64)),
 ])
 def test_unported_branches_raise(change):
     cfg = replace(get_config("tinyllama-1.1b", smoke=True), **change)
@@ -189,9 +194,12 @@ def test_unported_branches_raise(change):
 
 
 def test_unported_archs_raise():
-    assert PORTED == ("tinyllama_1_1b",)
-    for arch in ARCH_IDS:
-        if arch not in PORTED:
-            with pytest.raises(NotImplementedError):
-                get_config(arch)
+    assert PORTED == ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b")
+    unported = [arch for arch in ARCH_IDS if arch not in PORTED]
+    assert len(unported) == 7
+    for arch in unported:
+        with pytest.raises(NotImplementedError):
+            get_config(arch)
     assert get_config("tinyllama-1.1b").d_model == 2048
+    assert get_config("zamba2-1.2b").d_model == 2048
+    assert get_config("rwkv6-7b").d_model == 4096
