@@ -11,7 +11,9 @@ Phases, each of which raises on failure (nothing is caught):
              per source, all at once.
 3. kernels — the attention kernels against their plain torch versions on
              the card, at the serve shapes (TinyLlama's GQA and Zamba2's
-             MHA) and ragged ones, in bf16 and fp32; the bf16 flash kernel
+             MHA), ragged ones and the edges of the flash kernel's tiles
+             (S = T = 128 and 129, S = 1 against T = 1065, S = 127 against
+             T = 300, KV = H at D = 128), in bf16 and fp32; the bf16 flash kernel
              also against a dense fp32 reference on the same bf16 values,
              with a tight limit that planted faults must break; then CUDA
              event timings of kernel, plain version and the PyTorch library
@@ -228,7 +230,13 @@ def phase_kernels(torch):
                 (2, 8, 2, 130, 257, 64, True),     # S != T, both ragged
                 (1, 4, 2, 130, 130, 128, True),
                 (2, 4, 1, 257, 257, 256, True),
-                (1, 2, 1, 257, 130, 64, False)]    # non-causal, S > T
+                (1, 2, 1, 257, 130, 64, False),    # non-causal, S > T
+                # edges of the kernel's 128-row query tile and 64-key K/V tile
+                (2, 8, 2, 128, 128, 64, True),
+                (2, 8, 2, 129, 129, 64, True),
+                (2, 32, 4, 1, 1065, 64, True),     # the last query of a long prompt
+                (2, 8, 2, 127, 300, 64, True),
+                (2, 8, 8, 200, 200, 128, True)]    # KV = H at D = 128
     for case in fa_cases:
         B, H, KV, S, T, D, causal = case
         for dname, dt in dtypes.items():

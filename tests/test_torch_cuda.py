@@ -37,6 +37,29 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
 
 
 @pytest.mark.cuda
+def test_cuda_flash_attention_tile_edges_on_the_card():
+    """The flash kernel at its tile edges (128 query rows, 64 keys a tile),
+    with S > T (rows that see no key are zeros) and at D = 128 with
+    KV = H, in bf16 and fp32, against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        for B, H, KV, S, T, D in ((2, 4, 2, 129, 129, 64), (2, 4, 2, 100, 60, 64),
+                                  (1, 4, 4, 129, 129, 128)):
+            q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype).transpose(1, 2)
+            k = torch.randn(B, T, KV, D, generator=g, device="cuda").to(dtype).transpose(1, 2)
+            v = torch.randn(B, T, KV, D, generator=g, device="cuda").to(dtype).transpose(1, 2)
+            before = fa.launches
+            got = fa.flash_attention_fwd(q, k, v, True)
+            assert fa.launches == before + 1
+            torch.testing.assert_close(got, fa.attention_plain(q, k, v, True),
+                                       atol=tol, rtol=tol)
+            if S > T:
+                assert got[:, :, :S - T].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
 def test_cuda_scan_kernels_match_plain_versions_on_the_card():
     """bf16 and fp32, a nonzero initial state, G > 1, strided views of one
     projection (as the model hands them over), a ragged S against the token

@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Try edited copies of the port's flash attention kernel on one card.
+
+    python3 tools/torch_flash_variants.py [VARIANT.cu ...]
+
+Builds ``src/repro_torch/csrc/flash_attention.cu`` ("head") and every
+variant given (each a complete copy of that source with one change, kept
+outside the package, e.g. under ``build/``), all at once with the package's
+nvcc flags, and prints what ptxas reports for the bf16 kernels.  Each build
+is swapped in for the package's own by replacing
+``repro_torch.kernels.build.function``; each is held in bf16 against the
+plain version (2e-2) and a dense fp32 reference (atol 5e-3 + rtol 1e-2) on
+``chip_smoke.py``'s flash cases; those that pass are timed in turns (a, b,
+..., b, a; CUDA events, mean of 20 calls over input copies that exceed
+L2) at the TinyLlama serve shape and Zamba2's multi-head shape, beside
+``scaled_dot_product_attention``.  Needs one CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+import chip_smoke as cs  # noqa: E402
+
+CASES = [(8, 32, 4, 1000, 1000, 64, True), (8, 32, 32, 1024, 1024, 64, True),
+         (2, 8, 2, 130, 257, 64, True), (1, 4, 2, 130, 130, 128, True),
+         (2, 4, 1, 257, 257, 256, True), (1, 2, 1, 257, 130, 64, False),
+         (2, 8, 2, 128, 128, 64, True), (2, 8, 2, 129, 129, 64, True),
+         (2, 32, 4, 1, 1065, 64, True), (2, 8, 2, 127, 300, 64, True),
+         (2, 8, 8, 200, 200, 128, True), (1, 4, 2, 100, 60, 64, True)]
+TIMED = {"serve": (8, 32, 4, 1000, 1000, 64), "mha": (8, 32, 32, 1024, 1024, 64)}
+
+
+def main() -> int:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        print("torch_flash_variants: no CUDA device", file=sys.stderr)
+        return 1
+    out_dir = ROOT / "build" / "flash_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    srcs = {"head": build.CSRC / "flash_attention.cu"}
+    srcs.update((Path(a).stem, Path(a).resolve()) for a in sys.argv[1:])
+
+    def compile_one(item):
+        name, src = item
+        lib = out_dir / f"lib{name}.so"
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                              capture_output=True, text=True)
+        return name, lib, proc.returncode, proc.stdout + proc.stderr
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(srcs)) as ex:
+        built = list(ex.map(compile_one, srcs.items()))
+    print(f"[build] {len(built)} sources in {time.perf_counter() - t0:.1f} s", flush=True)
+    fns = {}
+    for name, lib, rc, log in built:
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "fa_fwd_bf16" in line and "Compiling" in line:
+                print(f"[ptxas {name}] {line.split('fa_fwd_bf16')[1][:12]}: "
+                      + " ".join(x.strip() for x in lines[i + 2:i + 4]))
+            elif "C75" in line or "error" in line:
+                print(f"[ptxas {name}] {line.strip()}")
+        if rc:
+            print(f"[build {name}] failed")
+            continue
+        fn = getattr(ctypes.CDLL(str(lib)), "flash_attention_fwd")
+        fn.restype, fn.argtypes = ctypes.c_int, fa._ARGTYPES
+        fns[name] = fn
+
+    def use(name):
+        build.function = lambda *a, **k: fns[name]
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    passed = []
+    for name in fns:
+        use(name)
+        bad = 0
+        for B, H, KV, S, T, D, causal in CASES:
+            q, k, v = cs._prefill_inputs(torch, gen, B, H, KV, S, T, D, torch.bfloat16)
+            got = fa.flash_attention_fwd(q, k, v, causal)
+            bad += cs.beyond(got, fa.attention_plain(q, k, v, causal), 2e-2, 2e-2)[1]
+            bad += cs.beyond(got, cs.attention_f32(torch, q, k, v, causal),
+                             cs.TIGHT_ATOL, cs.TIGHT_RTOL)[1]
+        print(f"[check {name}] {'ok' if bad == 0 else f'FAIL ({bad} elements)'}", flush=True)
+        if bad == 0:
+            passed.append(name)
+
+    for label, (B, H, KV, S, T, D) in TIMED.items():
+        nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * T * D)
+        ins = cs.copies_beyond_l2(
+            lambda: cs._prefill_inputs(torch, gen, B, H, KV, S, T, D, torch.bfloat16), nbytes)
+        times = {n: [] for n in passed}
+        for name in passed + passed[::-1]:
+            use(name)
+            times[name].append(cs.time_ms(
+                torch, lambda q, k, v: fa.flash_attention_fwd(q, k, v, True), ins))
+        sdpa = cs.time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), ins)
+        for name in passed:
+            print(f"[time {label}] {name}: {', '.join(f'{t:.4f}' for t in times[name])} ms "
+                  f"(SDPA {sdpa:.4f} ms)", flush=True)
+        del ins
+    print(f"[card] {cs.nvidia_smi_line()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
