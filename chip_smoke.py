@@ -11,13 +11,18 @@ Phases, each of which raises on failure (nothing is caught):
              per source, all at once.
 3. kernels — the attention kernels against their plain torch versions on
              the card, at the serve shapes (TinyLlama's GQA and Zamba2's
-             MHA), ragged ones and the edges of the flash kernel's tiles
+             MHA), ragged ones, the edges of the flash kernel's tiles
              (S = T = 128 and 129, S = 1 against T = 1065, S = 127 against
-             T = 300, KV = H at D = 128), in bf16 and fp32; the bf16 flash kernel
-             also against a dense fp32 reference on the same bf16 values,
-             with a tight limit that planted faults must break; then CUDA
-             event timings of kernel, plain version and the PyTorch library
-             call (SDPA, a yardstick the port never calls).
+             T = 300, KV = H at D = 128) and of the decode kernel's split
+             of the cache (lengths 1, 2 and T, one below, at and one above
+             a slice boundary, trailing CTAs empty, one CTA per pair, G = 1
+             to 32 at D = 64 and 128), in bf16 and fp32; the bf16 kernels
+             also against dense fp32 references on the same bf16 values,
+             with a tight limit that planted faults must break; then
+             timings of kernel, plain version and the PyTorch library call
+             (SDPA, a yardstick the port never calls): CUDA events for the
+             flash kernel, profiler device time per call (and host µs per
+             call) for the decode kernel at both serve shapes.
 4. scans   — the Mamba2 and RWKV6 scan kernels against their plain versions
              (the chunked references) and the token recurrences: serve
              shape, nonzero initial state, ragged S, G > 1, strongly
@@ -48,6 +53,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -63,9 +69,9 @@ PEAK_BYTES = 3.35e12
 L2_BYTES = 50 * 2 ** 20
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # atol = rtol, as the reference's kernel tests
-# bf16 flash kernel against a dense fp32 reference on the same bf16 values:
-# what is left is the kernel's own rounding of P (before P V) and of the
-# output to bf16, each at most a relative 2^-8.  atol + rtol * |want|.
+# bf16 flash and decode kernels against dense fp32 references on the same
+# bf16 values: what is left is the kernel's own rounding of P (before P V)
+# and of the output to bf16, each at most a relative 2^-8.  atol + rtol * |want|.
 TIGHT_ATOL, TIGHT_RTOL = 5e-3, 1e-2
 
 # main paths: full-width serving of each ported architecture, (arch, prompt)
@@ -161,6 +167,59 @@ def attention_f32(torch, q, k, v, causal, shift=0, drop_from=None):
     return torch.where(vis.any(-1, keepdim=True), p, 0.0) @ v
 
 
+def decode_f32(torch, q, k, v, length, keep=None, slices=None):
+    """Dense fp32 decode attention with an explicit mask, none of the port's
+    code: the heads of batch b see key j iff j < length[b] (and keep[b, j]);
+    a row that sees no key is zeros.  ``keep`` and ``slices`` plant faults
+    for the controls: with ``slices`` (B, T) slice numbers, every slice's
+    terms are taken against its own max and summed without the correction
+    to a common one."""
+    q, k, v = q.float(), k.float(), v.float()
+    G = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    vis = torch.arange(k.shape[2], device=q.device)[None, :] < length[:, None].long()
+    if keep is not None:
+        vis = vis & keep
+    s = torch.einsum("bhd,bhtd->bht", q, k) * q.shape[-1] ** -0.5
+    s = s.masked_fill(~vis[:, None], -math.inf)
+    m = s.amax(-1, keepdim=True).expand_as(s)
+    if slices is not None:
+        m = torch.full_like(s, -math.inf)
+        for r in slices.unique().tolist():
+            sel = (slices == r)[:, None]
+            m = torch.where(sel, s.masked_fill(~sel, -math.inf).amax(-1, keepdim=True), m)
+    e = torch.exp(s - torch.where(m == -math.inf, 0.0, m))  # masked keys: exp(-inf) = 0
+    return torch.einsum("bht,bhtd->bhd", e, v) / e.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+def device_ms(torch, fn, inputs, iters=30, warmup=3):
+    """(device ms per call, host µs per call).  Device time is every kernel
+    and copy that ``iters`` calls launched, summed from torch.profiler's
+    device-side events (the card's own kernel times, so the host's issue
+    rate does not count), over the calls.  Host time is the issue time of
+    the same calls without the profiler and without waiting for the card.
+    ``inputs`` cycle as in time_ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warmup):
+        fn(*inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type != torch.autograd.DeviceType.CPU)
+    if busy_us <= 0:
+        raise RuntimeError("device_ms: the profiler saw no device time")
+    return busy_us / iters / 1e3, host_us
+
+
 def bound(flops, nbytes, peak_flops):
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -193,7 +252,10 @@ def phase_build():
         f"(nvcc wall {build.build_seconds:.1f} s): {', '.join(sorted(libs))}")
     for name, out in sorted(build.ptxas_log.items()):
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line:  # the mangled kernel name, less its namespace
+                log(f"[build] {name}: " + re.sub(r"^.*?_cu_[0-9a-f]{8}\d+", "", line.split("'")[1])
+                    .split("Ev", 1)[0])
+            elif "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     return libs
 
@@ -270,21 +332,41 @@ def phase_kernels(torch):
     # --- flash decode: (B, H, KV, T, D)
     T_main = PROMPT + GEN + 1
     main_dec = (BATCH, 32, 4, T_main, 64)
+    mha_dec = (BATCH, 32, 32, 1024 + GEN + 1, 64)  # Zamba2's shared block
     lengths = torch.randint(1, T_main + 1, (BATCH,), generator=gen, device="cuda").tolist()
     lengths[0], lengths[1] = 1, T_main
+    # the split's edges at the serve shape: C = 8 CTAs a pair; at E = TILE * C
+    # keys every warp has one whole chunk, one key more doubles the slices
+    # and leaves the trailing CTAs empty (as 100 leaves six of them)
+    E = dec.TILE * dec.split_count(BATCH, main_dec[2], T_main)
     dec_cases = [(main_dec, lengths),
-                 ((BATCH, 32, 32, 1024 + GEN + 1, 64), [1024 + GEN] * BATCH),  # Zamba2, MHA
+                 (mha_dec, [mha_dec[3] - 1] * BATCH),
                  ((3, 8, 2, 300, 128), [1, 300, 157]),
-                 ((2, 8, 8, 77, 64), [77, 13])]
-    for (B, H, KV, T, D), length in dec_cases:
+                 ((2, 8, 8, 77, 64), [77, 13]),
+                 (main_dec, [1, 2, E - 1, E, E + 1, 100, 2 * E + 1, T_main]),
+                 ((2, 8, 2, 60, 64), [60, 17]),       # one tile of cache: C = 1
+                 ((2, 8, 8, 300, 128), [300, 129]),   # G = 1 at D = 128
+                 ((2, 16, 2, 300, 128), [300, 129]),  # G = 8 at D = 128
+                 ((2, 16, 1, 150, 128), [150, 65]),   # G = 16 at D = 128: G * D = 2048
+                 ((2, 32, 1, 200, 64), [200, 33])]    # G = 32 at D = 64: two M tiles
+    dec_main = None  # the first bf16 serve-shape case: the controls' inputs
+    for case, length in dec_cases:
+        B, H, KV, T, D = case
         for dname, dt in dtypes.items():
             q, k, v, ln = _decode_inputs(torch, gen, B, H, KV, T, D, dt, length)
             got = dec.flash_decode(q, k, v, ln)
             want = dec.decode_plain(q, k, v, ln)
             torch.cuda.synchronize()
-            err = assert_close(f"flash_decode {dname} B={B} H={H} KV={KV} T={T} D={D} "
-                               f"length={min(length)}..{max(length)}", got, want, TOL[dname])
-            errs[("dec", (B, H, KV, T, D), dname)] = err
+            label = f"flash_decode {dname} B={B} H={H} KV={KV} T={T} D={D} " \
+                    f"C={dec.split_count(B, KV, T)} length={','.join(map(str, length))}"
+            err = assert_close(label, got, want, TOL[dname])
+            errs.setdefault(("dec", case, dname), err)
+            if dt == torch.bfloat16:
+                errs.setdefault(("dec32", case), assert_close(
+                    label + " vs fp32 reference", got, decode_f32(torch, q, k, v, ln),
+                    TIGHT_ATOL, TIGHT_RTOL))
+            if case == main_dec and dt == torch.bfloat16 and dec_main is None:
+                dec_main = (q, k, v, ln, got)
     for dname, dt in dtypes.items():
         q, k, v, ln = _decode_inputs(torch, gen, 2, 8, 2, 64, 64, dt, [0, 5])
         got = dec.flash_decode(q, k, v, ln)
@@ -292,6 +374,7 @@ def phase_kernels(torch):
         if got[0].abs().max().item() != 0.0:
             raise AssertionError("flash_decode: length 0 does not give zeros")
         log(f"[kernels] flash_decode {dname} length=0 gives zeros: ok")
+    dec_controls = _decode_controls(torch, dec, *dec_main)
 
     # --- timings at the serve shapes, bf16
     B, H, KV, S, T, D, _ = main_fa
@@ -320,37 +403,52 @@ def phase_kernels(torch):
     }
     del fa_in
 
-    B, H, KV, T, D = main_dec
-    length = [T - 1] * B  # the last decode step of the main path: position T - 2
-    nbytes = 2 * (2 * B * H * D + 2 * KV * D * sum(length)) + 4 * B
-    dec_in = copies_beyond_l2(
-        lambda: _decode_inputs(torch, gen, B, H, KV, T, D, bf, length), nbytes)
-    dec_bound, dec_by = bound(4 * H * D * sum(length), nbytes, PEAK_BF16_FLOPS)
+    def decode_timing(case):
+        """Device ms (kernel, plain, SDPA) and host µs per call at a serve
+        shape, every length T - 1 (the last decode step of the path)."""
+        B, H, KV, T, D = case
+        length = [T - 1] * B
+        nbytes = 2 * (2 * B * H * D + 2 * KV * D * sum(length)) + 4 * B
+        dec_in = copies_beyond_l2(
+            lambda: _decode_inputs(torch, gen, B, H, KV, T, D, bf, length), nbytes)
+        # SDPA's mask is built outside the timed call
+        sdpa_in = [(q[:, :, None], k, v, (torch.arange(T, device="cuda")[None, :]
+                                          < ln[:, None])[:, None, None])
+                   for q, k, v, ln in dec_in]
+        t_bound, by = bound(4 * H * D * sum(length), nbytes, PEAK_BF16_FLOPS)
+        ms, host_us = device_ms(torch, dec.flash_decode, dec_in)
+        lib_ms, lib_host_us = device_ms(torch, lambda q, k, v, mask: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), sdpa_in)
+        row = {"shape": f"B={B} H={H} KV={KV} T={T} D={D} length={T - 1} bf16",
+               "splits": dec.split_count(B, KV, T), "ms": ms, "host_us_per_call": host_us,
+               "plain_ms": device_ms(torch, dec.decode_plain, dec_in, iters=10)[0],
+               "library_ms": lib_ms, "library_host_us_per_call": lib_host_us,
+               "bound_ms": t_bound, "bound_by": by,
+               "events_ms": time_ms(torch, dec.flash_decode, dec_in)}
+        del dec_in, sdpa_in
+        log(f"[kernels] flash_decode {row['shape']} (C={row['splits']}): kernel {ms:.4f} ms "
+            f"device ({100 * t_bound / ms:.0f}% of the bound), host {host_us:.1f} us a call, "
+            f"CUDA events over back-to-back calls {row['events_ms']:.4f} ms; plain "
+            f"{row['plain_ms']:.4f} ms, SDPA {lib_ms:.4f} ms device ({lib_host_us:.1f} us host); "
+            f"bound {t_bound:.4f} ms ({by}, datasheet peaks)")
+        return row
 
-    def sdpa_decode(q, k, v, ln):
-        mask = (torch.arange(k.shape[2], device="cuda")[None, :] < ln[:, None])[:, None, None]
-        return F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
-                                              enable_gqa=True)[:, :, 0]
-
-    dec_row = {
+    gqa, mha = decode_timing(main_dec), decode_timing(mha_dec)
+    dec_row = dict(gqa, **{
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:67",
-        "shape": f"B={B} H={H} KV={KV} T={T} D={D} length={T - 1} bf16",
         "max_abs_err": errs[("dec", main_dec, "bfloat16")],
         "max_abs_err_fp32": errs[("dec", main_dec, "float32")],
         "tol": TOL["bfloat16"], "tol_fp32": TOL["float32"],
-        "ms": time_ms(torch, dec.flash_decode, dec_in),
-        "plain_ms": time_ms(torch, dec.decode_plain, dec_in),
-        "library_ms": time_ms(torch, sdpa_decode, dec_in),
-        "bound_ms": dec_bound, "bound_by": dec_by,
-    }
-    del dec_in
-    for row in (fa_row, dec_row):
-        row["kernel_ms"] = row["ms"]
-        log(f"[kernels] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, datasheet peaks)")
+        "max_abs_err_vs_fp32_reference": errs[("dec32", main_dec)],
+        "tol_vs_fp32_reference": {"atol": TIGHT_ATOL, "rtol": TIGHT_RTOL},
+        "controls": dec_controls, "mha": mha})
+    fa_row["kernel_ms"] = fa_row["ms"]
+    dec_row["kernel_ms"] = dec_row["ms"]
+    log(f"[kernels] flash_attention_fwd {fa_row['shape']}: kernel {fa_row['ms']:.4f} ms, "
+        f"plain {fa_row['plain_ms']:.4f} ms, library {fa_row['library_ms']:.4f} ms, "
+        f"bound {fa_row['bound_ms']:.4f} ms ({fa_row['bound_by']}, datasheet peaks)")
     return [fa_row, dec_row]
 
 
@@ -375,6 +473,32 @@ def _kernel_controls(torch, q, k, v, got):
             raise AssertionError(f"control {fault}: the tight limit does not reject it")
         readings.append({"fault": fault, "max_abs_err": err, "beyond_tight": n_tight,
                          "beyond_tight_late_rows": n_late, "beyond_2e-2": n_loose})
+    return readings
+
+
+def _decode_controls(torch, dec, q, k, v, ln, got):
+    """Hold the sound bf16 decode output against fp32 references of kernels
+    with planted faults in the split: the tight limit must reject each."""
+    B, KV, T = k.shape[0], k.shape[1], k.shape[2]
+    C = dec.split_count(B, KV, T)
+    n = ln.long().clamp(0, T)
+    # keys per CTA slice, as the kernel partitions [0, n) (decode_attention.cu)
+    per = (-(-n // dec.CHUNK) + C * dec.WARPS - 1) // (C * dec.WARPS)
+    slice_of = torch.arange(T, device=k.device)[None, :] // (per * dec.TILE).clamp_min(1)[:, None]
+    readings = []
+    for fault, kw in ((f"slice 1 of the {C} CTAs' slices dropped", {"keep": slice_of != 1}),
+                      ("CTA partials summed without the max correction", {"slices": slice_of}),
+                      ("the newest key dropped", {"length": ln - 1})):
+        want = decode_f32(torch, q, k, v, kw.pop("length", ln), **kw)
+        err, n_tight, _ = beyond(got, want, TIGHT_ATOL, TIGHT_RTOL)
+        _, n_loose, _ = beyond(got, want, TOL["bfloat16"], TOL["bfloat16"])
+        log(f"[kernels] control, flash_decode bf16 vs a kernel with {fault}: "
+            f"max_abs_err={err:.3e}; beyond the tight limit {n_tight} elements, "
+            f"beyond 2e-2 {n_loose}")
+        if n_tight == 0:
+            raise AssertionError(f"control {fault}: the tight limit does not reject it")
+        readings.append({"fault": fault, "max_abs_err": err, "beyond_tight": n_tight,
+                         "beyond_2e-2": n_loose})
     return readings
 
 

@@ -2,9 +2,11 @@
 
 The port of the TPU kernel ``flash_decode`` (reference package,
 ``kernels/decode_attention.py``).  The kernel is
-``csrc/decode_attention.cu``: one CTA per (batch, kv head) serves the
-H // KV query heads of that group and stops at ``length[b]``.
-:func:`decode_plain` is the same function in plain torch.
+``csrc/decode_attention.cu``: the valid cache ``[0, length[b])`` of each
+(batch, kv head) pair is split over a cluster of :func:`split_count` CTAs,
+whose partial softmax states are merged by log-sum-exp; each CTA serves
+the H // KV query heads of the group.  :func:`decode_plain` is the same
+function in plain torch.
 
 :func:`flash_decode` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises.
@@ -25,9 +27,26 @@ _HEAD_DIMS = (64, 128)
 _DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GROUP_ELEMS = 256 * 8  # (H // KV) * D outputs held in one CTA's registers
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-# q, k, v, length, o, is_bf16, B, H, KV, T, D, scale, 10 strides, stream
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+# q, k, v, length, o, is_bf16, B, H, KV, T, D, splits, scale, 10 strides, stream
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
              *([_L] * 10), _P]
+
+# The kernel's partition of the cache axis (csrc/decode_attention.cu): a
+# warp steps through CHUNK keys at a time, a CTA of WARPS warps through
+# TILE keys, and the C CTAs of a (batch, kv head) pair form one cluster.
+CHUNK, WARPS = 16, 4
+TILE = CHUNK * WARPS
+MAX_SPLITS = 8  # the portable cluster size
+SMS = 132       # streaming multiprocessors of an H100 SXM
+
+
+def split_count(B: int, KV: int, T: int) -> int:
+    """CTAs per (batch, kv head) pair: about two CTAs per SM over the
+    B * KV pairs (rounded down, so that many pairs take one CTA each), at
+    most a cluster of 8 and at most the TILE-key tiles of a cache of
+    length T.  Depends on shapes only: ``length`` lies on the card, and
+    reading it would synchronise."""
+    return max(1, min(MAX_SPLITS, 2 * SMS // max(1, B * KV), -(-T // TILE)))
 
 
 def decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,8 +88,9 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, not {D}")
     if (H // KV) * D > _MAX_GROUP_ELEMS:
         raise ValueError(f"(H // KV) * D must be <= {_MAX_GROUP_ELEMS}")
-    if min(B, H, k.shape[2]) == 0 or B > 65535:
-        raise ValueError("empty batch, heads or cache, or batch > 65535 (grid limit)")
+    if min(B, H, k.shape[2]) == 0 or B * KV * MAX_SPLITS >= 2 ** 31:
+        raise ValueError("empty batch, heads or cache, or batch x kv heads >= 2^28 "
+                         "(grid limit)")
     if any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError("the CUDA kernel has no backward yet")
     if q.stride(2) != 1:
@@ -105,7 +125,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = build.function("decode_attention", "flash_decode", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), out.data_ptr(),
-             int(q.dtype == torch.bfloat16), B, H, KV, T, D, scale_,
+             int(q.dtype == torch.bfloat16), B, H, KV, T, D, split_count(B, KV, T), scale_,
              *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *out.stride()[:2],
              stream)
     if err:

@@ -113,3 +113,32 @@ def test_cuda_scan_kernels_match_plain_versions_on_the_card():
         ntol = 2e-3 if dtype == torch.float32 else tol
         torch.testing.assert_close(y.float(), want[0], atol=ntol, rtol=ntol)
         torch.testing.assert_close(s, want[1], atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_split_edges_on_the_card():
+    """The decode kernel at the edges of its split of the cache over C CTAs
+    a pair: lengths 0, 1, 2 and T, one below, at and one above E = TILE * C
+    (one whole chunk a warp; one key more doubles the slices and empties
+    the trailing CTAs), C = 1, G = 1 and 8 at D = 128, G = 32 at D = 64; a
+    cache whose K and V are strided views of one (B, T, 2, KV, D) buffer;
+    bf16 and fp32; each call is one counted launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        for B, H, KV, T, D in ((8, 32, 4, 1065, 64), (2, 8, 2, 60, 64), (2, 8, 8, 300, 128),
+                               (2, 16, 2, 300, 128), (2, 32, 1, 200, 64)):
+            E = dec.TILE * dec.split_count(B, KV, T)
+            lengths = [0, 1, 2, E - 1, E, E + 1, 100, T] if B == 8 else [T, min(E + 1, T)]
+            q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
+            kv = torch.randn(B, T, 2, KV, D, generator=g, device="cuda").to(dtype)
+            k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+            length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            before = dec.launches
+            got = dec.flash_decode(q, k, v, length)
+            assert dec.launches == before + 1
+            torch.testing.assert_close(got, dec.decode_plain(q, k, v, length),
+                                       atol=tol, rtol=tol)
+            if lengths[0] == 0:
+                assert got[0].abs().max().item() == 0.0

@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""Same-card A/B of two checkouts of the PyTorch port's flash attention.
+"""Same-card A/B of two checkouts of the PyTorch port's attention kernels.
 
     python3 tools/torch_flash_ab.py --base build/parent [--head .] [--out FILE]
 
 In turns base, head, head, base, each in a fresh process over that tree's
-``src``: the bf16 ``flash_attention_fwd`` kernel and PyTorch's
-``scaled_dot_product_attention`` (the yardstick) at the serve shape (B=8,
-H=32, KV=4, S=T=1000, D=64, causal; CUDA events, mean of 20 calls cycling
-through input copies that exceed L2), then tinyllama-1.1b served by that
-tree's ``launch/serve.py`` (batch 8, prompt 1000, 64 tokens: prefill ms and
-decode ms per step).  Prints one JSON line per turn and writes them all to
-``--out``.  Needs one CUDA card; each tree builds its own kernels.
+``src``:
+- the bf16 ``flash_attention_fwd`` kernel and PyTorch's
+  ``scaled_dot_product_attention`` (the yardstick) at the prefill serve
+  shape (B=8, H=32, KV=4, S=T=1000, D=64, causal; CUDA events, mean of 20
+  calls cycling through input copies that exceed L2);
+- the bf16 ``flash_decode`` kernel and SDPA with a prebuilt mask at
+  TinyLlama's GQA decode shape (B=8, H=32, KV=4, T=1065, length 1064) and
+  Zamba2's MHA one (B=8, H=KV=32, T=1089, length 1088): device time per
+  call from the profiler's device events and host µs per call
+  (``chip_smoke.device_ms``);
+- tinyllama-1.1b served by that tree's ``launch/serve.py`` (batch 8, prompt
+  1000, 64 tokens: prefill ms and decode ms per step).
+The timing helpers are this checkout's ``chip_smoke.py`` for both trees.
+Prints one JSON line per turn and writes them all to ``--out``.  Needs one
+CUDA card; each tree builds its own kernels.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPE = (8, 32, 4, 1000, 1000, 64)  # B, H, KV, S, T, D
+DECODE = {"gqa": (8, 32, 4, 1065, 64), "mha": (8, 32, 32, 1089, 64)}  # B, H, KV, T, D
 
 
 def _run(cmd, **kw) -> str:
@@ -41,6 +50,7 @@ def worker(tree: Path) -> dict:
     import torch.nn.functional as F
 
     import chip_smoke as cs  # this checkout's timing helpers
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
 
     if not torch.cuda.is_available():
@@ -58,6 +68,23 @@ def worker(tree: Path) -> dict:
            "sdpa_ms": cs.time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
                q, k, v, is_causal=True, enable_gqa=True), inputs)}
     del inputs, got
+    for name, (B, H, KV, T, D) in DECODE.items():
+        length = [T - 1] * B
+        nbytes = 2 * (2 * B * H * D + 2 * KV * D * sum(length)) + 4 * B
+        inputs = cs.copies_beyond_l2(lambda: cs._decode_inputs(
+            torch, gen, B, H, KV, T, D, torch.bfloat16, length), nbytes)
+        sdpa_in = [(q[:, :, None], k, v, (torch.arange(T, device="cuda")[None, :]
+                                          < ln[:, None])[:, None, None])
+                   for q, k, v, ln in inputs]
+        got = dec.flash_decode(*inputs[0])
+        row[f"decode_{name}_max_abs_err_vs_plain"] = (
+            got.float() - dec.decode_plain(*inputs[0]).float()).abs().max().item()
+        row[f"decode_{name}_kernel_ms"], row[f"decode_{name}_host_us"] = cs.device_ms(
+            torch, dec.flash_decode, inputs)
+        row[f"decode_{name}_sdpa_ms"] = cs.device_ms(
+            torch, lambda q, k, v, mask: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), sdpa_in)[0]
+        del inputs, sdpa_in, got
     torch.cuda.empty_cache()
     out = _run([sys.executable, str(tree / "src/repro_torch/launch/serve.py"), "--arch",
                 "tinyllama-1.1b", "--batch", "8", "--prompt-len", "1000", "--gen", "64"],

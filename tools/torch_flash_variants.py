@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
-"""Try edited copies of the port's flash attention kernel on one card.
+"""Try edited copies of the port's attention kernels on one card.
 
     python3 tools/torch_flash_variants.py [VARIANT.cu ...]
+    python3 tools/torch_flash_variants.py --kernel decode [--splits 2,4,8] [VARIANT.cu ...]
 
-Builds ``src/repro_torch/csrc/flash_attention.cu`` ("head") and every
-variant given (each a complete copy of that source with one change, kept
-outside the package, e.g. under ``build/``), all at once with the package's
-nvcc flags, and prints what ptxas reports for the bf16 kernels.  Each build
-is swapped in for the package's own by replacing
+Builds the package's source ("head": ``src/repro_torch/csrc/
+flash_attention.cu``, or ``decode_attention.cu`` with ``--kernel decode``)
+and every variant given (each a complete copy of that source with one
+change, kept outside the package, e.g. under ``build/``), all at once with
+the package's nvcc flags, and prints what ptxas reports for the bf16
+kernels.  Each build is swapped in for the package's own by replacing
 ``repro_torch.kernels.build.function``; each is held in bf16 against the
 plain version (2e-2) and a dense fp32 reference (atol 5e-3 + rtol 1e-2) on
-``chip_smoke.py``'s flash cases; those that pass are timed in turns (a, b,
-..., b, a; CUDA events, mean of 20 calls over input copies that exceed
-L2) at the TinyLlama serve shape and Zamba2's multi-head shape, beside
-``scaled_dot_product_attention``.  Needs one CUDA card and nvcc.
+``chip_smoke.py``'s cases for that kernel; those that pass are timed in
+turns (a, b, ..., b, a) at the TinyLlama serve shape and Zamba2's
+multi-head shape, beside ``scaled_dot_product_attention``: the flash
+kernel with CUDA events (mean of 20 calls over input copies that exceed
+L2), the decode kernel in device time per call (``chip_smoke.device_ms``),
+once per split count of ``--splits`` (default: the wrapper's own choice).
+Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -37,21 +43,37 @@ CASES = [(8, 32, 4, 1000, 1000, 64, True), (8, 32, 32, 1024, 1024, 64, True),
          (2, 32, 4, 1, 1065, 64, True), (2, 8, 2, 127, 300, 64, True),
          (2, 8, 8, 200, 200, 128, True), (1, 4, 2, 100, 60, 64, True)]
 TIMED = {"serve": (8, 32, 4, 1000, 1000, 64), "mha": (8, 32, 32, 1024, 1024, 64)}
+# decode: (B, H, KV, T, D), lengths; the edges of chip_smoke.py's cases
+DECODE_CASES = [((8, 32, 4, 1065, 64), [1, 2, 511, 512, 513, 100, 1025, 1065]),
+                ((8, 32, 32, 1089, 64), [1088] * 8), ((3, 8, 2, 300, 128), [1, 300, 157]),
+                ((2, 8, 8, 77, 64), [77, 13]), ((2, 8, 2, 60, 64), [60, 17]),
+                ((2, 16, 1, 150, 128), [150, 65]), ((2, 32, 1, 200, 64), [200, 33])]
+DECODE_TIMED = {"serve": (8, 32, 4, 1065, 64), "mha": (8, 32, 32, 1089, 64)}
 
 
 def main() -> int:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=("flash", "decode"), default="flash")
+    ap.add_argument("--splits", default="", help="decode: split counts to time, e.g. 2,4,8")
+    ap.add_argument("variants", nargs="*")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_flash_variants: no CUDA device", file=sys.stderr)
         return 1
-    out_dir = ROOT / "build" / "flash_variants"
+    source, symbol, argtypes, entry = {
+        "flash": ("flash_attention.cu", "flash_attention_fwd", fa._ARGTYPES, "fa_fwd_bf16"),
+        "decode": ("decode_attention.cu", "flash_decode", dec._ARGTYPES, "decode_bf16"),
+    }[args.kernel]
+    out_dir = ROOT / "build" / f"{args.kernel}_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    srcs = {"head": build.CSRC / "flash_attention.cu"}
-    srcs.update((Path(a).stem, Path(a).resolve()) for a in sys.argv[1:])
+    srcs = {"head": build.CSRC / source}
+    srcs.update((Path(a).stem, Path(a).resolve()) for a in args.variants)
 
     def compile_one(item):
         name, src = item
@@ -68,22 +90,27 @@ def main() -> int:
     for name, lib, rc, log in built:
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "fa_fwd_bf16" in line and "Compiling" in line:
-                print(f"[ptxas {name}] {line.split('fa_fwd_bf16')[1][:12]}: "
+            if entry in line and "Compiling" in line:
+                print(f"[ptxas {name}] {line.split(entry)[1][:12]}: "
                       + " ".join(x.strip() for x in lines[i + 2:i + 4]))
             elif "C75" in line or "error" in line:
                 print(f"[ptxas {name}] {line.strip()}")
         if rc:
             print(f"[build {name}] failed")
             continue
-        fn = getattr(ctypes.CDLL(str(lib)), "flash_attention_fwd")
-        fn.restype, fn.argtypes = ctypes.c_int, fa._ARGTYPES
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.restype, fn.argtypes = ctypes.c_int, argtypes
         fns[name] = fn
 
     def use(name):
         build.function = lambda *a, **k: fns[name]
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.kernel == "decode":
+        splits = [int(c) for c in args.splits.split(",") if c]
+        _decode(torch, F, dec, fns, use, gen, splits)
+        print(f"[card] {cs.nvidia_smi_line()}")
+        return 0
     passed = []
     for name in fns:
         use(name)
@@ -115,6 +142,44 @@ def main() -> int:
         del ins
     print(f"[card] {cs.nvidia_smi_line()}")
     return 0
+
+
+def _decode(torch, F, dec, fns, use, gen, splits):
+    passed = []
+    for name in fns:
+        use(name)
+        bad = 0
+        for (B, H, KV, T, D), length in DECODE_CASES:
+            q, k, v, ln = cs._decode_inputs(torch, gen, B, H, KV, T, D, torch.bfloat16, length)
+            got = dec.flash_decode(q, k, v, ln)
+            bad += cs.beyond(got, dec.decode_plain(q, k, v, ln), 2e-2, 2e-2)[1]
+            bad += cs.beyond(got, cs.decode_f32(torch, q, k, v, ln),
+                             cs.TIGHT_ATOL, cs.TIGHT_RTOL)[1]
+        print(f"[check {name}] {'ok' if bad == 0 else f'FAIL ({bad} elements)'}", flush=True)
+        if bad == 0:
+            passed.append(name)
+
+    own = dec.split_count
+    for label, (B, H, KV, T, D) in DECODE_TIMED.items():
+        length = [T - 1] * B
+        nbytes = 2 * (2 * B * H * D + 2 * KV * D * sum(length)) + 4 * B
+        ins = cs.copies_beyond_l2(
+            lambda: cs._decode_inputs(torch, gen, B, H, KV, T, D, torch.bfloat16, length), nbytes)
+        runs = [(n, c) for n in passed for c in (splits or [own(B, KV, T)])]
+        times = {r: [] for r in runs}
+        for name, c in runs + runs[::-1]:
+            use(name)
+            dec.split_count = lambda *a, c=c: c
+            times[(name, c)].append(cs.device_ms(torch, dec.flash_decode, ins)[0])
+        dec.split_count = own
+        sdpa_in = [(q[:, :, None], k, v, (torch.arange(T, device="cuda")[None, :]
+                                          < ln[:, None])[:, None, None]) for q, k, v, ln in ins]
+        sdpa = cs.device_ms(torch, lambda q, k, v, mask: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), sdpa_in)[0]
+        for (name, c), t in times.items():
+            print(f"[time {label}] {name} C={c}: {', '.join(f'{x:.4f}' for x in t)} ms device "
+                  f"(SDPA {sdpa:.4f} ms)", flush=True)
+        del ins, sdpa_in
 
 
 if __name__ == "__main__":
