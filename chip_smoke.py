@@ -26,9 +26,15 @@ Phases, each of which raises on failure (nothing is caught):
 4. scans   — the Mamba2 and RWKV6 scan kernels against their plain versions
              (the chunked references) and the token recurrences: serve
              shape, nonzero initial state, ragged S, G > 1, strongly
-             decaying channels; planted faults (state carry dropped, decay
-             one position late, bonus u omitted) that the limits must
-             reject; timings of kernel and plain version.
+             decaying channels (w down to -20); for RWKV6 also the edges of
+             the bf16 kernel's chunk and sub-blocks (S = 1, 7, 9, 33),
+             K = V = 16 and 32, and views of one projection (rows 16-byte
+             aligned and not); planted faults
+             (state carry dropped, decay one position late, bonus u
+             omitted, pairs across RWKV6's sub-blocks dropped) that the
+             limits must reject; a reading of the RWKV6 state with its
+             decayed k rounded to bf16; timings of kernel and plain
+             version.
 5. main    — three paths, each full width in bf16 with random weights from
              a seed, serving batch 8 and 64 greedy tokens through
              ``make_generate_loop``: tinyllama-1.1b (prompt 1000),
@@ -507,7 +513,7 @@ def _decode_controls(torch, dec, q, k, v, ln, got):
 # ---------------------------------------------------------------------------
 # the reference's own kernel-test limits (tests/test_kernels.py), atol = rtol
 SCAN_TOL = {"mamba2": 1e-4, "rwkv6": 5e-5, "rwkv6_naive": 2e-3, "bfloat16": 2e-2}
-MAMBA_CHUNK, RWKV_CHUNK = 64, 32  # the kernels' own chunk lengths
+MAMBA_CHUNK = 64  # the Mamba2 kernel's chunk length (RWKV6's: rwkv6_scan.CHUNK)
 SCAN_SERVE = {"mamba2": (BATCH, 1024, 64, 64, 1, 64),   # B, S, H, P, G, N (zamba2-1.2b)
               "rwkv6": (BATCH, 1024, 64, 64)}          # B, S, H, K = V (rwkv6-7b)
 
@@ -523,16 +529,26 @@ def _mamba_inputs(torch, gen, B, S, H, P, G, N, dtype, h0=False):
     return x, dt, A, Bm, Cm, h
 
 
-def _rwkv_inputs(torch, gen, B, S, H, K, dtype, s0=False, w_max=3.0, grid=True):
+def _rwkv_inputs(torch, gen, B, S, H, K, dtype, s0=False, w_max=3.0, grid=True,
+                 offset=None):
     """The distributions of the reference's kernel tests.  With ``grid``, w
     lies on a 2^-6 grid: every prefix sum of w is then exact in fp32 in any
     order, so the kernel and the chunked plain version form the same decay
     exponents.  Off the grid, fp32 prefix sums near -190 round by ~1e-5, and
     exp(cwx_t - cw_s) of two summation orders differs by more than the
     reference's 5e-5 (it holds only between implementations that share one
-    cumsum, as the reference's own test does)."""
-    r, k, v = (torch.randn((B, S, H, K), generator=gen, device="cuda").to(dtype)
-               for _ in range(3))
+    cumsum, as the reference's own test does).  With ``offset``, r, k and v
+    are views of one (B, S, 3 H K + offset) projection that start ``offset``
+    elements into it, as a fused projection hands them over: 8 keeps their
+    rows 16-byte aligned, 1 does not (the bf16 kernel then stages by plain
+    loads)."""
+    if offset is not None:
+        proj = torch.randn((B, S, 3 * H * K + offset), generator=gen, device="cuda").to(dtype)
+        r, k, v = (proj[..., offset + i * H * K:offset + (i + 1) * H * K].unflatten(-1, (H, K))
+                   for i in range(3))
+    else:
+        r, k, v = (torch.randn((B, S, H, K), generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
     w = -(torch.rand((B, S, H, K), generator=gen, device="cuda") * (w_max - 0.01) + 0.01)
     if grid:
         w = -torch.clamp(torch.round(-w * 64), min=1) / 64
@@ -582,6 +598,50 @@ def _wkv_decay_late(torch, r, k, v, w, u, s0=None):
                                e * s + u[None, :, :, None] * kv))
         s = e * s + kv
     return torch.stack(ys, 1).to(v.dtype)
+
+
+def _wkv_chunked(torch, r, k, v, w, u, chunk, s0=None, sub=None, kd_bf16=False):
+    """The chunked WKV6 in fp32, none of the port's code, for a planted fault
+    and a reading: with ``sub``, the pairs (t, s) of a chunk that lie in
+    different sub-blocks of ``sub`` positions are dropped; with
+    ``kd_bf16``, k exp(cw_L - cw) is rounded to bf16 before the state
+    update.  S must be a multiple of ``chunk``."""
+    B, S, H, K = r.shape
+    n = S // chunk
+    rc, kc, vc, wc = (x.float().reshape(B, n, chunk, H, x.shape[-1]) for x in (r, k, v, w))
+    i = torch.arange(chunk, device=r.device)
+    keep = i[:, None] > i[None, :]
+    if sub is not None:
+        keep = keep & (i[:, None] // sub == i[None, :] // sub)
+    mask = keep[None, :, :, None, None]
+    s = torch.zeros((B, H, K, v.shape[-1]), device=r.device) if s0 is None else s0.float()
+    ys = []
+    for c in range(n):
+        rb, kb, vb, wb = rc[:, c], kc[:, c], vc[:, c], wc[:, c]
+        cw = torch.cumsum(wb, 1)
+        cwx = cw - wb
+        y = torch.einsum("blhk,bhkv->blhv", rb * torch.exp(cwx), s)
+        expo = torch.where(mask, cwx[:, :, None] - cw[:, None], -math.inf)
+        qk = torch.einsum("blhk,bmhk,blmhk->blmh", rb, kb, torch.exp(expo))
+        y = y + torch.einsum("blmh,bmhv->blhv", qk, vb)
+        y = y + torch.einsum("blhk,hk,blhk->blh", rb, u.float(), kb)[..., None] * vb
+        kd = kb * torch.exp(cw[:, -1:] - cw)
+        if kd_bf16:
+            kd = kd.to(torch.bfloat16).float()
+        s = torch.exp(cw[:, -1])[..., None] * s + torch.einsum("blhk,blhv->bhkv", kd, vb)
+        ys.append(y)
+    return torch.stack(ys, 1).reshape(B, S, H, v.shape[-1]), s
+
+
+def _rwkv6_ctas_per_sm(head_dim):
+    """CTAs of the bf16 RWKV6 kernel that one SM holds at this head size:
+    the CUDA occupancy calculator, through the library's own entry point."""
+    import ctypes
+    from repro_torch.kernels import build
+    n = build.function("rwkv6_scan", "rwkv6_ctas_per_sm", [ctypes.c_int])(head_dim)
+    if n < 0:
+        raise RuntimeError(f"rwkv6_ctas_per_sm: CUDA error {-n}")
+    return n
 
 
 def _scan_controls(name, outs, faulty, fails):
@@ -648,44 +708,78 @@ def phase_scans(torch):
     del serve_out, serve_in
 
     # --- rwkv6, the same way; w on the 2^-6 grid (see _rwkv_inputs), and
-    # one case off it, held against the token recurrence only
+    # one case off it, held against the token recurrence only.  The plain
+    # version takes S in chunks of min(64, S): every S below 64 is one chunk.
+    # The bf16 kernel's edges: S = 1, one below and above its sub-block and
+    # one above its chunk, K = V = 16 and 32, views of one projection (rows
+    # 16-byte aligned, staged by cp.async, and not, staged by plain loads),
+    # and w down to -20 (the model's w = -exp(w0 + dw) reaches it)
+    L = r6.CHUNK
     R, RN = SCAN_TOL["rwkv6"], SCAN_TOL["rwkv6_naive"]
     main_r = SCAN_SERVE["rwkv6"]
     serve_out, serve_in = {}, {}
-    for seed, (shape, s0, w_max, grid, label) in enumerate((
-            (main_r, False, 3.0, True, "serve shape"),
-            (main_r, False, 3.0, False, "serve shape, w off the grid"),
-            ((2, 1024, 64, 64), True, 3.0, True, "nonzero s0"),
-            ((2, 1000, 4, 64), True, 3.0, True, "ragged S=1000"),
-            ((2, 256, 4, 64), True, 8.0, True, "w down to -8"))):
+    for seed, (shape, s0, w_max, grid, offset, label) in enumerate((
+            (main_r, False, 3.0, True, None, "serve shape"),
+            (main_r, False, 3.0, False, None, "serve shape, w off the grid"),
+            ((2, 1024, 64, 64), True, 3.0, True, None, "nonzero s0"),
+            ((2, 1000, 4, 64), True, 3.0, True, None, "ragged S=1000"),
+            ((2, 256, 4, 64), True, 8.0, True, None, "w down to -8"),
+            ((2, 1, 4, 64), True, 3.0, True, None, "S=1"),
+            ((2, r6.SUB - 1, 4, 64), True, 3.0, True, None, "S=sub-1"),
+            ((2, r6.SUB + 1, 4, 64), True, 3.0, True, None, "S=sub+1"),
+            ((2, L + 1, 4, 64), True, 3.0, True, None, "S=L+1"),
+            ((2, 256, 4, 16), True, 3.0, True, None, "K=V=16"),
+            ((2, 256, 4, 32), True, 3.0, True, None, "K=V=32"),
+            ((2, 256, 4, 64), True, 3.0, True, 8, "views of one projection"),
+            ((2, 256, 4, 64), True, 20.0, True, None, "w down to -20"),
+            # appended, so that the seeds of the cases above stay as they were
+            ((2, 256, 4, 64), True, 3.0, True, 1,
+             "views of one projection, rows not 16-byte aligned"),
+            ((2, L + 1, 4, 16), True, 3.0, True, 1,
+             "views of one projection, rows not 16-byte aligned, S=L+1, K=V=16"))):
         B, S, H, K = shape
         for dname, dt in dtypes.items():
             case_gen = torch.Generator(device="cuda").manual_seed(20 + seed)
-            args = _rwkv_inputs(torch, case_gen, *shape, dt, s0, w_max, grid)
+            args = _rwkv_inputs(torch, case_gen, *shape, dt, s0, w_max, grid, offset)
             got = r6.rwkv6_scan(*args)
             torch.cuda.synchronize()
             tag = f"rwkv6_scan {dname} B={B} S={S} H={H} K=V={K} ({label})"
-            if S % 64 == 0 and grid:
+            if not (torch.isfinite(got[0].float()).all() and torch.isfinite(got[1]).all()):
+                fails.append(f"{tag}: inf or NaN in the output")
+            plain = S % min(64, S) == 0 and grid
+            if plain:
                 errs[("r6", label, dname)] = _scan_close(
                     tag + " vs plain", got, r6.rwkv6_plain(*_upcast(args)),
                     R if dname == "float32" else BF, R, fails)
                 if dname == "bfloat16":
                     _scan_close(tag + " vs bf16 plain", got, r6.rwkv6_plain(*args), BF, R, None)
-            if dname == "float32" or S % 64 or not grid:
+            if dname == "float32" or not plain or shape != main_r:
                 _scan_close(tag + " vs naive", got, ref.rwkv6_scan_naive(*_upcast(args)),
                             RN if dname == "float32" else BF, RN, fails)
             if label == "serve shape":
                 serve_out[dname], serve_in[dname] = got[0], _upcast(args)
     r6_controls = [
-        _scan_controls(f"rwkv6_scan: state carry dropped between chunks of {RWKV_CHUNK}",
-                       serve_out, {d: r6.rwkv6_plain(*(_fold(t, RWKV_CHUNK) for t in a[:4]), a[4])[0]
+        _scan_controls(f"rwkv6_scan: state carry dropped between chunks of {L}",
+                       serve_out, {d: r6.rwkv6_plain(*(_fold(t, L) for t in a[:4]), a[4])[0]
                                    .reshape(a[2].shape) for d, a in serve_in.items()}, fails),
         _scan_controls("rwkv6_scan: decay applied one position late (inclusive)", serve_out,
                        {d: _wkv_decay_late(torch, *a[:5]) for d, a in serve_in.items()}, fails),
         _scan_controls("rwkv6_scan: bonus u omitted", serve_out,
                        {d: r6.rwkv6_plain(*a[:4], torch.zeros_like(a[4]))[0]
+                        for d, a in serve_in.items()}, fails),
+        _scan_controls(f"rwkv6_scan: pairs across sub-blocks of {r6.SUB} dropped", serve_out,
+                       {d: _wkv_chunked(torch, *a[:5], L, sub=r6.SUB)[0]
                         for d, a in serve_in.items()}, fails)]
-    del serve_out, serve_in
+    # a reading, not a control: how far the state limit stands from a state
+    # update whose k exp(cw_L - cw) is rounded to bf16 (one bf16 part)
+    a = serve_in["bfloat16"]
+    short, want = _wkv_chunked(torch, *a[:5], L, kd_bf16=True)[1], r6.rwkv6_plain(*a[:5])[1]
+    err, bad, share = beyond(short, want, R, R)
+    log(f"[scans] reading, rwkv6 state with k exp(cw_L - cw) rounded to bf16 vs plain: "
+        f"max_abs_err={err:.3e}, {bad} elements beyond atol=rtol={R:g} "
+        f"({100 * share:.0f}% of the limit at most)")
+    kd_reading = {"max_abs_err": err, "beyond": bad, "limit_share": share}
+    del serve_out, serve_in, a, short, want
     if fails:
         raise AssertionError("scan kernels disagree with their references, or a limit "
                              "misses a planted fault:\n  " + "\n  ".join(fails))
@@ -716,7 +810,7 @@ def phase_scans(torch):
     B, S, H, K = main_r
     nbytes = 3 * 2 * B * S * H * K + 4 * B * S * H * K + 4 * H * K + 2 * B * S * H * K \
         + 4 * B * H * K * K
-    L, nc = RWKV_CHUNK, -(-S // RWKV_CHUNK)
+    L, nc = r6.CHUNK, -(-S // r6.CHUNK)
     pairs = L * (L - 1) // 2
     flops = B * H * nc * (4 * pairs * K + 3 * L * K + 4 * L * K * K + 2 * pairs * K + 2 * L * K)
     r_in = copies_beyond_l2(lambda: _rwkv_inputs(torch, gen, *main_r, bf)[:5], nbytes)
@@ -729,12 +823,14 @@ def phase_scans(torch):
         "max_abs_err_state": errs[("r6", "serve shape", "bfloat16")][1],
         "max_abs_err_fp32": errs[("r6", "serve shape", "float32")][0],
         "tol": BF, "tol_fp32": R, "controls": r6_controls,
+        "reading_state_kd_bf16": kd_reading, "ctas_per_sm": _rwkv6_ctas_per_sm(K),
         "ms": time_ms(torch, r6.rwkv6_scan, r_in),
         "plain_ms": time_ms(torch, r6.rwkv6_plain, r_in, iters=3, warmup=1),
         "library_ms": None, "library_note": "no single PyTorch call computes the scan",
         "bound_ms": r_bound, "bound_by": r_by,
     }
     del r_in
+    log(f"[scans] rwkv6_scan bf16 kernel: {r_row['ctas_per_sm']} CTAs an SM at K = V = {K}")
     for row in (m_row, r_row):
         row["kernel_ms"] = row["ms"]
         log(f"[scans] {row['name']} {row['shape']}: kernel {row['ms']:.4f} ms, "
@@ -993,6 +1089,7 @@ def _floor_scan(cfg):
     """Replacements for ops: the plain chunked scan with the kernel's
     arithmetic (fp32 on the same bf16 values) at the kernel's chunk."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_scan import CHUNK
 
     if cfg.mamba is not None:
         def mamba2(x, dt, A, B, C, h0=None, impl="auto"):
@@ -1003,7 +1100,7 @@ def _floor_scan(cfg):
 
     def rwkv6(r, k, v, w, u, s0=None, impl="auto"):
         y, s = ref.rwkv6_scan_chunked(r.float(), k.float(), v.float(), w, u, s0,
-                                      chunk=min(RWKV_CHUNK, r.shape[1]))
+                                      chunk=min(CHUNK, r.shape[1]))
         return y.to(v.dtype), s
     return {"rwkv6": rwkv6}
 

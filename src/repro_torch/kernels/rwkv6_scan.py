@@ -2,9 +2,14 @@
 
 The port of the TPU kernel ``rwkv6_scan`` (reference package,
 ``kernels/rwkv6_scan.py``).  The kernel is ``csrc/rwkv6_scan.cu``: one CTA
-per (head, batch) loops over chunks of 32 positions with the (K, V) fp32
-state in shared memory.  :func:`rwkv6_plain` is the same function in plain
-torch (the chunked reference).
+per (head, batch) loops over chunks of 32 positions.  For bf16 r/k/v it
+stages each chunk with ``cp.async``, forms the pair matrix inside diagonal
+sub-blocks of 8 positions by a decay walk (one factor exp(w) a row) and
+about a sub-block boundary elsewhere, and runs the chunk products on the
+tensor cores with operands split into bf16 parts, the fp32 state kept in
+registers; fp32 r/k/v take a scalar fp32 kernel.
+:func:`rwkv6_plain` is the same function in plain torch (the chunked
+reference).
 
 :func:`rwkv6_scan` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises.
@@ -20,6 +25,11 @@ import torch
 from . import build, ref
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
+
+# the kernels' chunk and the bf16 kernel's diagonal sub-blocks of the pair
+# matrix, in positions (``L`` and ``SUB`` of csrc/rwkv6_scan.cu)
+CHUNK = 32
+SUB = 8
 
 _HEAD_DIMS = (16, 32, 64)
 _DTYPES = (torch.bfloat16, torch.float32)

@@ -142,3 +142,42 @@ def test_cuda_flash_decode_split_edges_on_the_card():
                                        atol=tol, rtol=tol)
             if lengths[0] == 0:
                 assert got[0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_scan_edges_on_the_card():
+    """The RWKV6 kernels at the edges of the bf16 kernel's chunk and
+    sub-blocks (S = 1, SUB - 1, SUB + 1, CHUNK + 1), at K = V = 16, 32 and
+    64, and on r/k/v that are views of one projection, with rows 16-byte
+    aligned (cp.async staging) and not (plain loads); bf16 and fp32, y and
+    the final state (at 5e-5 in both dtypes) against the plain version in
+    fp32 on the same values, w on the 2^-6 grid; each call is one counted
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    # (B, S, H, K, offset): with an offset, r/k/v are views that start that
+    # many elements into one (B, S, 3 H K + offset) projection
+    cases = [(2, 1, 4, 64, None), (2, r6.SUB - 1, 4, 64, None), (2, r6.SUB + 1, 4, 64, None),
+             (2, r6.CHUNK + 1, 4, 64, None), (2, 128, 4, 16, None), (2, 128, 4, 32, None),
+             (2, 128, 4, 64, 8), (2, 128, 4, 64, 1), (2, r6.CHUNK + 1, 4, 16, 1)]
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 5e-5)):
+        for B, S, H, K, offset in cases:
+            if offset is not None:
+                proj = torch.randn(B, S, 3 * H * K + offset, generator=g,
+                                   device="cuda").to(dtype)
+                r, k, v = (proj[..., offset + i * H * K:offset + (i + 1) * H * K]
+                           .unflatten(-1, (H, K)) for i in range(3))
+            else:
+                r, k, v = (torch.randn(B, S, H, K, generator=g, device="cuda").to(dtype)
+                           for _ in range(3))
+            w = -torch.clamp(torch.round(torch.rand(B, S, H, K, generator=g, device="cuda")
+                                         * 3 * 64), min=1) / 64
+            u = torch.randn(H, K, generator=g, device="cuda")
+            s0 = torch.randn(B, H, K, K, generator=g, device="cuda")
+            before = r6.launches
+            y, s = r6.rwkv6_scan(r, k, v, w, u, s0)
+            assert r6.launches == before + 1
+            want = r6.rwkv6_plain(r.float(), k.float(), v.float(), w, u, s0)
+            torch.testing.assert_close(y.float(), want[0], atol=tol, rtol=tol)
+            torch.testing.assert_close(s, want[1], atol=5e-5, rtol=5e-5)

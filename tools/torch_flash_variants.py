@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Try edited copies of the port's attention kernels on one card.
+"""Try edited copies of the port's attention and RWKV6 kernels on one card.
 
     python3 tools/torch_flash_variants.py [VARIANT.cu ...]
     python3 tools/torch_flash_variants.py --kernel decode [--splits 2,4,8] [VARIANT.cu ...]
+    python3 tools/torch_flash_variants.py --kernel rwkv6 [VARIANT.cu ...]
 
 Builds the package's source ("head": ``src/repro_torch/csrc/
-flash_attention.cu``, or ``decode_attention.cu`` with ``--kernel decode``)
+flash_attention.cu``, ``decode_attention.cu`` with ``--kernel decode``, or
+``rwkv6_scan.cu`` with ``--kernel rwkv6``)
 and every variant given (each a complete copy of that source with one
 change, kept outside the package, e.g. under ``build/``), all at once with
 the package's nvcc flags, and prints what ptxas reports for the bf16
@@ -18,6 +20,14 @@ multi-head shape, beside ``scaled_dot_product_attention``: the flash
 kernel with CUDA events (mean of 20 calls over input copies that exceed
 L2), the decode kernel in device time per call (``chip_smoke.device_ms``),
 once per split count of ``--splits`` (default: the wrapper's own choice).
+
+With ``--kernel rwkv6`` each build is held in bf16 against the plain
+version in fp32 on the same bf16 values (y 2e-2, final state 5e-5) at the
+serve shape and on ``chip_smoke.py``'s edge cases, with the largest share
+of each limit, and every build is timed in turns at the serve shape (B=8,
+S=1024, H=64, K=V=64) with CUDA events, beside the CTAs an SM it holds;
+one that fails the check is marked so, since a copy with a phase left
+out is a timing reading whose results are wrong by design.
 Needs one CUDA card and nvcc.
 """
 
@@ -49,6 +59,12 @@ DECODE_CASES = [((8, 32, 4, 1065, 64), [1, 2, 511, 512, 513, 100, 1025, 1065]),
                 ((2, 8, 8, 77, 64), [77, 13]), ((2, 8, 2, 60, 64), [60, 17]),
                 ((2, 16, 1, 150, 128), [150, 65]), ((2, 32, 1, 200, 64), [200, 33])]
 DECODE_TIMED = {"serve": (8, 32, 4, 1065, 64), "mha": (8, 32, 32, 1089, 64)}
+# rwkv6: (B, S, H, K, view offset), nonzero s0; the edges of chip_smoke.py's
+# cases (offset 1: r, k, v are views whose rows are not 16-byte aligned)
+RWKV_CASES = [(8, 1024, 64, 64, None), (2, 1, 4, 64, None), (2, 9, 4, 64, None),
+              (2, 33, 4, 64, None), (2, 256, 4, 16, None), (2, 256, 4, 32, None),
+              (2, 256, 4, 64, 8), (2, 33, 4, 64, 1)]
+RWKV_TIMED = (8, 1024, 64, 64)
 
 
 def main() -> int:
@@ -57,9 +73,10 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as r6
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("flash", "decode"), default="flash")
+    ap.add_argument("--kernel", choices=("flash", "decode", "rwkv6"), default="flash")
     ap.add_argument("--splits", default="", help="decode: split counts to time, e.g. 2,4,8")
     ap.add_argument("variants", nargs="*")
     args = ap.parse_args()
@@ -69,6 +86,7 @@ def main() -> int:
     source, symbol, argtypes, entry = {
         "flash": ("flash_attention.cu", "flash_attention_fwd", fa._ARGTYPES, "fa_fwd_bf16"),
         "decode": ("decode_attention.cu", "flash_decode", dec._ARGTYPES, "decode_bf16"),
+        "rwkv6": ("rwkv6_scan.cu", "rwkv6_scan", r6._ARGTYPES, "rwkv6_bf16"),
     }[args.kernel]
     out_dir = ROOT / "build" / f"{args.kernel}_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -98,14 +116,23 @@ def main() -> int:
         if rc:
             print(f"[build {name}] failed")
             continue
-        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        cdll = ctypes.CDLL(str(lib))
+        fn = getattr(cdll, symbol)
         fn.restype, fn.argtypes = ctypes.c_int, argtypes
         fns[name] = fn
+        if args.kernel == "rwkv6":
+            occ = cdll.rwkv6_ctas_per_sm
+            occ.restype, occ.argtypes = ctypes.c_int, [ctypes.c_int]
+            print(f"[occupancy {name}] {occ(64)} CTAs an SM at K = V = 64", flush=True)
 
     def use(name):
         build.function = lambda *a, **k: fns[name]
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.kernel == "rwkv6":
+        _rwkv6(torch, r6, fns, use, gen)
+        print(f"[card] {cs.nvidia_smi_line()}")
+        return 0
     if args.kernel == "decode":
         splits = [int(c) for c in args.splits.split(",") if c]
         _decode(torch, F, dec, fns, use, gen, splits)
@@ -180,6 +207,38 @@ def _decode(torch, F, dec, fns, use, gen, splits):
             print(f"[time {label}] {name} C={c}: {', '.join(f'{x:.4f}' for x in t)} ms device "
                   f"(SDPA {sdpa:.4f} ms)", flush=True)
         del ins, sdpa_in
+
+
+def _rwkv6(torch, r6, fns, use, gen):
+    bf = torch.bfloat16
+    failed = set()
+    for name in fns:
+        use(name)
+        bad, share_y, share_s = 0, 0.0, 0.0
+        for B, S, H, K, offset in RWKV_CASES:
+            args = cs._rwkv_inputs(torch, gen, B, S, H, K, bf, s0=True, offset=offset)
+            got = r6.rwkv6_scan(*args)
+            want = r6.rwkv6_plain(*cs._upcast(args))  # every S here is a multiple of min(64, S)
+            _, n, sh = cs.beyond(got[0], want[0], 2e-2, 2e-2)
+            bad, share_y = bad + n, max(share_y, sh)
+            _, n, sh = cs.beyond(got[1], want[1], 5e-5, 5e-5)
+            bad, share_s = bad + n, max(share_s, sh)
+        print(f"[check {name}] {'ok' if bad == 0 else f'FAIL ({bad} elements)'}; at most "
+              f"{100 * share_y:.0f}% of the y limit, {100 * share_s:.0f}% of the state limit",
+              flush=True)
+        if bad:
+            failed.add(name)
+    runs = list(fns)
+    B, S, H, K = RWKV_TIMED
+    nbytes = 3 * 2 * B * S * H * K + 4 * B * S * H * K + 2 * B * S * H * K + 4 * B * H * K * K
+    ins = cs.copies_beyond_l2(lambda: cs._rwkv_inputs(torch, gen, B, S, H, K, bf)[:5], nbytes)
+    times = {n: [] for n in runs}
+    for name in runs + runs[::-1]:
+        use(name)
+        times[name].append(cs.time_ms(torch, r6.rwkv6_scan, ins))
+    for name, t in times.items():
+        print(f"[time serve] {name}: {', '.join(f'{x:.4f}' for x in t)} ms"
+              f"{' (fails the check)' if name in failed else ''}", flush=True)
 
 
 if __name__ == "__main__":
