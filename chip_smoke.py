@@ -26,15 +26,17 @@ Phases, each of which raises on failure (nothing is caught):
 4. scans   — the Mamba2 and RWKV6 scan kernels against their plain versions
              (the chunked references) and the token recurrences: serve
              shape, nonzero initial state, ragged S, G > 1, strongly
-             decaying channels (w down to -20); for RWKV6 also the edges of
-             the bf16 kernel's chunk and sub-blocks (S = 1, 7, 9, 33),
-             K = V = 16 and 32, and views of one projection (rows 16-byte
-             aligned and not); planted faults
-             (state carry dropped, decay one position late, bonus u
-             omitted, pairs across RWKV6's sub-blocks dropped) that the
-             limits must reject; a reading of the RWKV6 state with its
-             decayed k rounded to bf16; timings of kernel and plain
-             version.
+             decaying channels (w down to -20); the edges of each bf16
+             kernel's chunk (Mamba2 S = 1, 63, 65, 1000; RWKV6 S = 1, 7, 9,
+             33 and its sub-blocks), head sizes below the serve shape's
+             (Mamba2 P = 16, 32, N = 16, 32, 128, G = H; RWKV6 K = V = 16,
+             32), and views of one projection (rows 16-byte aligned and
+             not); planted faults (state carry dropped, Mamba2's diagonal
+             s = t dropped from W, RWKV6's decay one position late, bonus u
+             omitted, pairs across sub-blocks dropped) that the limits must
+             reject; readings of each bf16 state with its decayed operand
+             (Mamba2's B~, RWKV6's k~) rounded to one bf16 part; CTAs an SM
+             of both bf16 kernels; timings of kernel and plain version.
 5. main    — three paths, each full width in bf16 with random weights from
              a seed, serving batch 8 and 64 greedy tokens through
              ``make_generate_loop``: tinyllama-1.1b (prompt 1000),
@@ -513,18 +515,29 @@ def _decode_controls(torch, dec, q, k, v, ln, got):
 # ---------------------------------------------------------------------------
 # the reference's own kernel-test limits (tests/test_kernels.py), atol = rtol
 SCAN_TOL = {"mamba2": 1e-4, "rwkv6": 5e-5, "rwkv6_naive": 2e-3, "bfloat16": 2e-2}
-MAMBA_CHUNK = 64  # the Mamba2 kernel's chunk length (RWKV6's: rwkv6_scan.CHUNK)
 SCAN_SERVE = {"mamba2": (BATCH, 1024, 64, 64, 1, 64),   # B, S, H, P, G, N (zamba2-1.2b)
               "rwkv6": (BATCH, 1024, 64, 64)}          # B, S, H, K = V (rwkv6-7b)
 
 
-def _mamba_inputs(torch, gen, B, S, H, P, G, N, dtype, h0=False):
-    """The distributions of the reference's kernel tests."""
-    x = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dtype)
+def _mamba_inputs(torch, gen, B, S, H, P, G, N, dtype, h0=False, offset=None):
+    """The distributions of the reference's kernel tests.  With ``offset``,
+    x, B and C are views of one (B, S, H P + 2 G N + offset) projection
+    that start ``offset`` elements into it, as the model's split of its
+    conv output hands them over: 8 keeps their rows 16-byte aligned, 1 does
+    not (the bf16 kernel then stages by plain loads)."""
+    if offset is not None:
+        proj = torch.randn((B, S, H * P + 2 * G * N + offset), generator=gen,
+                           device="cuda").to(dtype)
+        x = proj[..., offset:offset + H * P].unflatten(-1, (H, P))
+        Bm, Cm = (proj[..., offset + H * P + i * G * N:offset + H * P + (i + 1) * G * N]
+                  .unflatten(-1, (G, N)) for i in range(2))
+    else:
+        x = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dtype)
     dt = torch.rand((B, S, H), generator=gen, device="cuda") * 0.19 + 0.01
     A = -(torch.rand((H,), generator=gen, device="cuda") * 1.5 + 0.5)
-    Bm = torch.randn((B, S, G, N), generator=gen, device="cuda").to(dtype)
-    Cm = torch.randn((B, S, G, N), generator=gen, device="cuda").to(dtype)
+    if offset is None:
+        Bm = torch.randn((B, S, G, N), generator=gen, device="cuda").to(dtype)
+        Cm = torch.randn((B, S, G, N), generator=gen, device="cuda").to(dtype)
     h = torch.randn((B, H, P, N), generator=gen, device="cuda") if h0 else None
     return x, dt, A, Bm, Cm, h
 
@@ -633,14 +646,46 @@ def _wkv_chunked(torch, r, k, v, w, u, chunk, s0=None, sub=None, kd_bf16=False):
     return torch.stack(ys, 1).reshape(B, S, H, v.shape[-1]), s
 
 
-def _rwkv6_ctas_per_sm(head_dim):
-    """CTAs of the bf16 RWKV6 kernel that one SM holds at this head size:
+def _ssd_chunked(torch, x, dt, A, Bm, Cm, h0=None, chunk=64, strict=False, bt_bf16=False):
+    """The chunked SSD scan in fp32, none of the port's code, for a planted
+    fault and a reading: with ``strict``, the diagonal s = t of the chunk's
+    W is dropped; with ``bt_bf16``, B~ = exp(cs_L - cs_s) dt_s B_s is
+    rounded to bf16 (one part) before the state update.  S must be a
+    multiple of ``chunk``."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    n, rep = S // chunk, H // G
+    xc = x.float().reshape(B, n, chunk, H, P)
+    dc = dt.float().reshape(B, n, chunk, H)
+    bc, cc = (t.float().repeat_interleave(rep, 2).reshape(B, n, chunk, H, N) for t in (Bm, Cm))
+    i = torch.arange(chunk, device=x.device)
+    keep = (i[:, None] > i[None, :]) if strict else (i[:, None] >= i[None, :])
+    h = torch.zeros((B, H, P, N), device=x.device) if h0 is None else h0.float()
+    ys = []
+    for c in range(n):
+        xb, db, bb, cb = xc[:, c], dc[:, c], bc[:, c], cc[:, c]
+        cs = torch.cumsum(db * A.float(), 1)  # (B, L, H)
+        tot = cs[:, -1]
+        expo = torch.where(keep[None, :, :, None], cs[:, :, None] - cs[:, None], -math.inf)
+        w = torch.exp(expo) * torch.einsum("bthn,bshn->btsh", cb, bb) * db[:, None]
+        y = torch.einsum("btsh,bshp->bthp", w, xb) \
+            + torch.einsum("bthn,bhpn->bthp", cb, h) * torch.exp(cs)[..., None]
+        bt = (torch.exp(tot[:, None] - cs) * db)[..., None] * bb
+        if bt_bf16:
+            bt = bt.to(torch.bfloat16).float()
+        h = torch.exp(tot)[..., None, None] * h + torch.einsum("bshp,bshn->bhpn", xb, bt)
+        ys.append(y)
+    return torch.stack(ys, 1).reshape(B, S, H, P), h
+
+
+def _ctas_per_sm(lib, symbol, *dims):
+    """CTAs of a bf16 scan kernel that one SM holds at these head sizes:
     the CUDA occupancy calculator, through the library's own entry point."""
     import ctypes
     from repro_torch.kernels import build
-    n = build.function("rwkv6_scan", "rwkv6_ctas_per_sm", [ctypes.c_int])(head_dim)
+    n = build.function(lib, symbol, [ctypes.c_int] * len(dims))(*dims)
     if n < 0:
-        raise RuntimeError(f"rwkv6_ctas_per_sm: CUDA error {-n}")
+        raise RuntimeError(f"{symbol}: CUDA error {-n}")
     return n
 
 
@@ -661,34 +706,55 @@ def _scan_controls(name, outs, faulty, fails):
     return reading
 
 
-def phase_scans(torch):
+def _mamba2_checks(torch, fails, errs):
+    """phase_scans' mamba2 part: every case against its reference, the
+    planted faults, and a reading of the state with B~ in one bf16 part.
+    bf16 outputs are held against the plain versions on the same bf16
+    values in fp32 (the kernel's arithmetic); the reading against the bf16
+    plain version (the reference's rounding of C.B) is logged only.
+    Returns (controls, reading)."""
     from repro_torch.kernels import mamba2_scan as m2
     from repro_torch.kernels import ref
-    from repro_torch.kernels import rwkv6_scan as r6
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    fails, errs = [], {}
-    BF = SCAN_TOL["bfloat16"]
-
-    # --- mamba2.  bf16 outputs are held against the plain versions on the
-    # same bf16 values in fp32 (the kernel's arithmetic); the reading against
-    # the bf16 plain version (the reference's rounding of C.B) is logged only
-    M = SCAN_TOL["mamba2"]
+    M, BF = SCAN_TOL["mamba2"], SCAN_TOL["bfloat16"]
+    L = m2.CHUNK
     main_m = SCAN_SERVE["mamba2"]
     serve_out, serve_in = {}, {}
-    for seed, (shape, h0, label) in enumerate(((main_m, False, "serve shape"),
-                                               ((2, 1024, 64, 64, 1, 64), True, "nonzero h0"),
-                                               ((2, 512, 8, 64, 2, 64), True, "G=2"),
-                                               ((2, 1000, 8, 64, 1, 64), True, "ragged S=1000"))):
+    for seed, (shape, h0, offset, label) in enumerate((
+            (main_m, False, None, "serve shape"),
+            ((2, 1024, 64, 64, 1, 64), True, None, "nonzero h0"),
+            ((2, 512, 8, 64, 2, 64), True, None, "G=2"),
+            ((2, 1000, 8, 64, 1, 64), True, None, "ragged S=1000"),
+            # appended, so that the seeds of the cases above stay as they
+            # were.  The bf16 kernel's edges: its chunk, P and N below 64
+            # (zero-padded tiles), N = 128 (two panels), one group a head,
+            # views of one projection (rows 16-byte aligned, staged by
+            # cp.async, and not, staged by plain loads)
+            ((2, 1, 4, 64, 1, 64), True, None, "S=1"),
+            ((2, L - 1, 4, 64, 1, 64), True, None, "S=L-1"),
+            ((2, L + 1, 4, 64, 1, 64), True, None, "S=L+1"),
+            ((2, 256, 4, 16, 1, 64), True, None, "P=16"),
+            ((2, 256, 4, 32, 1, 64), True, None, "P=32"),
+            ((2, 256, 4, 64, 1, 16), True, None, "N=16"),
+            ((2, 256, 4, 64, 1, 32), True, None, "N=32"),
+            ((2, 256, 4, 64, 1, 128), True, None, "N=128"),
+            ((2, 256, 4, 64, 4, 64), True, None, "G=H"),
+            ((2, 256, 4, 64, 1, 64), True, 8, "views of one projection"),
+            ((2, 256, 4, 64, 1, 64), True, 1,
+             "views of one projection, rows not 16-byte aligned"),
+            ((2, L + 1, 4, 16, 4, 16), True, 1,
+             "views of one projection, rows not 16-byte aligned, S=L+1, P=N=16, G=H"))):
         B, S, H, P, G, N = shape
         for dname, dt in dtypes.items():
             # one seed per case: the bf16 inputs are the fp32 ones, rounded
             case_gen = torch.Generator(device="cuda").manual_seed(10 + seed)
-            args = _mamba_inputs(torch, case_gen, *shape, dt, h0)
+            args = _mamba_inputs(torch, case_gen, *shape, dt, h0, offset)
             got = m2.mamba2_scan(*args)
             torch.cuda.synchronize()
             tag = f"mamba2_scan {dname} B={B} S={S} H={H} P={P} G={G} N={N} ({label})"
+            if not (torch.isfinite(got[0].float()).all() and torch.isfinite(got[1]).all()):
+                fails.append(f"{tag}: inf or NaN in the output")
             ty = M if dname == "float32" else BF
             if S % 128 == 0:
                 errs[("m2", label, dname)] = _scan_close(
@@ -700,12 +766,36 @@ def phase_scans(torch):
                             ty, M, fails)
             if shape == main_m:
                 serve_out[dname], serve_in[dname] = got[0], _upcast(args)
-    m2_controls = [_scan_controls(
-        f"mamba2_scan: state carry dropped between chunks of {MAMBA_CHUNK}", serve_out,
-        {d: m2.mamba2_plain(_fold(a[0], MAMBA_CHUNK), _fold(a[1], MAMBA_CHUNK), a[2],
-                            _fold(a[3], MAMBA_CHUNK), _fold(a[4], MAMBA_CHUNK))[0]
-            .reshape(a[0].shape) for d, a in serve_in.items()}, fails)]
-    del serve_out, serve_in
+    controls = [
+        _scan_controls(f"mamba2_scan: state carry dropped between chunks of {L}", serve_out,
+                       {d: m2.mamba2_plain(_fold(a[0], L), _fold(a[1], L), a[2], _fold(a[3], L),
+                                           _fold(a[4], L))[0].reshape(a[0].shape)
+                        for d, a in serve_in.items()}, fails),
+        _scan_controls("mamba2_scan: the diagonal s = t dropped from W", serve_out,
+                       {d: _ssd_chunked(torch, *a[:5], chunk=L, strict=True)[0]
+                        for d, a in serve_in.items()}, fails)]
+    # a reading, not a control: how far the state limit stands from a state
+    # update whose B~ = exp(cs_L - cs) dt B is rounded to bf16 (one part)
+    a = serve_in["bfloat16"]
+    short, want = _ssd_chunked(torch, *a[:5], chunk=L, bt_bf16=True)[1], m2.mamba2_plain(*a[:5])[1]
+    err, bad, share = beyond(short, want, M, M)
+    log(f"[scans] reading, mamba2 state with B~ = exp(cs_L - cs) dt B rounded to bf16 vs "
+        f"plain: max_abs_err={err:.3e}, {bad} elements beyond atol=rtol={M:g} "
+        f"({100 * share:.0f}% of the limit at most)")
+    return controls, {"max_abs_err": err, "beyond": bad, "limit_share": share}
+
+
+def phase_scans(torch):
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as r6
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    fails, errs = [], {}
+    BF = SCAN_TOL["bfloat16"]
+    M = SCAN_TOL["mamba2"]
+    m2_controls, bt_reading = _mamba2_checks(torch, fails, errs)
 
     # --- rwkv6, the same way; w on the 2^-6 grid (see _rwkv_inputs), and
     # one case off it, held against the token recurrence only.  The plain
@@ -786,10 +876,11 @@ def phase_scans(torch):
 
     # --- timings and bounds at the serve shapes, bf16
     bf = torch.bfloat16
+    main_m = SCAN_SERVE["mamba2"]
     B, S, H, P, G, N = main_m
     nbytes = 2 * B * S * H * P + 4 * B * S * H + 4 * H + 2 * 2 * B * S * G * N \
         + 2 * B * S * H * P + 4 * B * H * P * N
-    L, nc = MAMBA_CHUNK, -(-S // MAMBA_CHUNK)
+    L, nc = m2.CHUNK, -(-S // m2.CHUNK)
     flops = B * nc * (G * 2 * L * L * N + H * (2 * L * L * P + 4 * L * P * N))
     m_in = copies_beyond_l2(lambda: _mamba_inputs(torch, gen, *main_m, bf)[:5], nbytes)
     m_bound, m_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
@@ -801,6 +892,9 @@ def phase_scans(torch):
         "max_abs_err_state": errs[("m2", "serve shape", "bfloat16")][1],
         "max_abs_err_fp32": errs[("m2", "serve shape", "float32")][0],
         "tol": BF, "tol_fp32": M, "controls": m2_controls,
+        "reading_state_bt_bf16": bt_reading,
+        "ctas_per_sm": _ctas_per_sm("mamba2_scan", "mamba2_ctas_per_sm", P, N),
+        "ctas_per_sm_n128": _ctas_per_sm("mamba2_scan", "mamba2_ctas_per_sm", P, 128),
         "ms": time_ms(torch, m2.mamba2_scan, m_in),
         "plain_ms": time_ms(torch, m2.mamba2_plain, m_in, iters=3, warmup=1),
         "library_ms": None, "library_note": "no single PyTorch call computes the scan",
@@ -823,13 +917,16 @@ def phase_scans(torch):
         "max_abs_err_state": errs[("r6", "serve shape", "bfloat16")][1],
         "max_abs_err_fp32": errs[("r6", "serve shape", "float32")][0],
         "tol": BF, "tol_fp32": R, "controls": r6_controls,
-        "reading_state_kd_bf16": kd_reading, "ctas_per_sm": _rwkv6_ctas_per_sm(K),
+        "reading_state_kd_bf16": kd_reading,
+        "ctas_per_sm": _ctas_per_sm("rwkv6_scan", "rwkv6_ctas_per_sm", K),
         "ms": time_ms(torch, r6.rwkv6_scan, r_in),
         "plain_ms": time_ms(torch, r6.rwkv6_plain, r_in, iters=3, warmup=1),
         "library_ms": None, "library_note": "no single PyTorch call computes the scan",
         "bound_ms": r_bound, "bound_by": r_by,
     }
     del r_in
+    log(f"[scans] mamba2_scan bf16 kernel: {m_row['ctas_per_sm']} CTAs an SM at P = N = 64, "
+        f"{m_row['ctas_per_sm_n128']} at N = 128")
     log(f"[scans] rwkv6_scan bf16 kernel: {r_row['ctas_per_sm']} CTAs an SM at K = V = {K}")
     for row in (m_row, r_row):
         row["kernel_ms"] = row["ms"]
@@ -1088,13 +1185,13 @@ def _fmt(rel):
 def _floor_scan(cfg):
     """Replacements for ops: the plain chunked scan with the kernel's
     arithmetic (fp32 on the same bf16 values) at the kernel's chunk."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import mamba2_scan, ref
     from repro_torch.kernels.rwkv6_scan import CHUNK
 
     if cfg.mamba is not None:
         def mamba2(x, dt, A, B, C, h0=None, impl="auto"):
             y, h = ref.mamba2_scan_chunked(x.float(), dt, A, B.float(), C.float(), h0,
-                                           chunk=min(MAMBA_CHUNK, x.shape[1]))
+                                           chunk=min(mamba2_scan.CHUNK, x.shape[1]))
             return y.to(x.dtype), h
         return {"mamba2": mamba2}
 

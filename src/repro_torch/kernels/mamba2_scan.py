@@ -2,9 +2,12 @@
 
 The port of the TPU kernel ``mamba2_scan`` (reference package,
 ``kernels/mamba2_scan.py``).  The kernel is ``csrc/mamba2_scan.cu``: one
-CTA per (head, batch) loops over chunks of 64 positions with the (P, N)
-fp32 state in shared memory.  :func:`mamba2_plain` is the same function in
-plain torch (the chunked reference).
+CTA per (head, batch) loops over chunks of 64 positions.  For bf16 x/B/C
+it is one warpgroup that stages each chunk with ``cp.async`` and runs the
+four chunk products on ``wgmma``, with W, the state and B scaled by its
+decay each split into two bf16 parts, the fp32 state kept in registers;
+fp32 x/B/C take a scalar fp32 kernel.  :func:`mamba2_plain` is the same
+function in plain torch (the chunked reference).
 
 :func:`mamba2_scan` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises.
@@ -20,6 +23,9 @@ import torch
 from . import build, ref
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
+
+# the kernels' chunk, in positions (``L`` of csrc/mamba2_scan.cu)
+CHUNK = 64
 
 _P_DIMS = (16, 32, 64)
 _N_DIMS = (16, 32, 64, 128)

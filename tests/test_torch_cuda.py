@@ -181,3 +181,45 @@ def test_cuda_rwkv6_scan_edges_on_the_card():
             want = r6.rwkv6_plain(r.float(), k.float(), v.float(), w, u, s0)
             torch.testing.assert_close(y.float(), want[0], atol=tol, rtol=tol)
             torch.testing.assert_close(s, want[1], atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_scan_edges_on_the_card():
+    """The Mamba2 kernels at the edges of the bf16 kernel's chunk (S = 1,
+    CHUNK - 1, CHUNK + 1, 1000), at P = 16 and 32, N = 16, 32 and 128
+    (zero-padded tiles; two panels), G = H, and on x/B/C that are views of
+    one projection with rows 16-byte aligned (cp.async staging) and not
+    (plain loads); bf16 and fp32, a nonzero h0, y against the plain version
+    in fp32 on the same values (the token recurrence for a ragged S), the
+    final state at 1e-4 in both dtypes; each call is one counted launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    L = m2.CHUNK
+    # (B, S, H, P, G, N, offset): with an offset, x/B/C are views that start
+    # that many elements into one (B, S, H P + 2 G N + offset) projection
+    cases = [(2, 1, 4, 64, 1, 64, None), (2, L - 1, 4, 64, 1, 64, None),
+             (2, L + 1, 4, 64, 1, 64, None), (2, 1000, 2, 64, 1, 64, None),
+             (2, 128, 4, 16, 1, 64, None), (2, 128, 4, 32, 1, 64, None),
+             (2, 128, 4, 64, 1, 16, None), (2, 128, 4, 64, 1, 32, None),
+             (2, 128, 4, 64, 1, 128, None), (2, 128, 4, 64, 4, 64, None),
+             (2, 128, 4, 64, 1, 64, 8), (2, 128, 4, 64, 1, 64, 1),
+             (2, L + 1, 4, 16, 4, 16, 1)]
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for B, S, H, P, G, N, offset in cases:
+            proj = torch.randn(B, S, H * P + 2 * G * N + (offset or 0), generator=g,
+                               device="cuda").to(dtype)
+            o = offset or 0
+            x = proj[..., o:o + H * P].unflatten(-1, (H, P))
+            Bm = proj[..., o + H * P:o + H * P + G * N].unflatten(-1, (G, N))
+            Cm = proj[..., o + H * P + G * N:].unflatten(-1, (G, N))
+            dt = torch.rand(B, S, H, generator=g, device="cuda") * 0.19 + 0.01
+            A = -(torch.rand(H, generator=g, device="cuda") * 1.5 + 0.5)
+            h0 = torch.randn(B, H, P, N, generator=g, device="cuda")
+            before = m2.launches
+            y, h = m2.mamba2_scan(x, dt, A, Bm, Cm, h0)
+            assert m2.launches == before + 1
+            args = (x.float(), dt, A, Bm.float(), Cm.float(), h0)
+            want = m2.mamba2_plain(*args) if S % 128 == 0 else ref.mamba2_scan_naive(*args)
+            torch.testing.assert_close(y.float(), want[0].float(), atol=tol, rtol=tol)
+            torch.testing.assert_close(h, want[1], atol=1e-4, rtol=1e-4)

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Try edited copies of the port's attention and RWKV6 kernels on one card.
+"""Try edited copies of the port's attention and scan kernels on one card.
 
     python3 tools/torch_flash_variants.py [VARIANT.cu ...]
     python3 tools/torch_flash_variants.py --kernel decode [--splits 2,4,8] [VARIANT.cu ...]
-    python3 tools/torch_flash_variants.py --kernel rwkv6 [VARIANT.cu ...]
+    python3 tools/torch_flash_variants.py --kernel rwkv6|mamba2 [VARIANT.cu ...]
 
 Builds the package's source ("head": ``src/repro_torch/csrc/
-flash_attention.cu``, ``decode_attention.cu`` with ``--kernel decode``, or
-``rwkv6_scan.cu`` with ``--kernel rwkv6``)
+flash_attention.cu``, ``decode_attention.cu`` with ``--kernel decode``,
+``rwkv6_scan.cu`` with ``--kernel rwkv6`` or ``mamba2_scan.cu`` with
+``--kernel mamba2``)
 and every variant given (each a complete copy of that source with one
 change, kept outside the package, e.g. under ``build/``), all at once with
 the package's nvcc flags, and prints what ptxas reports for the bf16
@@ -27,7 +28,12 @@ serve shape and on ``chip_smoke.py``'s edge cases, with the largest share
 of each limit, and every build is timed in turns at the serve shape (B=8,
 S=1024, H=64, K=V=64) with CUDA events, beside the CTAs an SM it holds;
 one that fails the check is marked so, since a copy with a phase left
-out is a timing reading whose results are wrong by design.
+out is a timing reading whose results are wrong by design.  ``--kernel
+mamba2`` does the same for the bf16 Mamba2 kernel: y within 2e-2 and the
+final state within 1e-4 of the plain version in fp32 on the same bf16
+values (the token recurrence for a ragged S), at zamba2-1.2b's serve
+shape (B=8, S=1024, H=64, P=N=64, G=1) and ``chip_smoke.py``'s edge cases,
+timed at the serve shape.
 Needs one CUDA card and nvcc.
 """
 
@@ -65,6 +71,15 @@ RWKV_CASES = [(8, 1024, 64, 64, None), (2, 1, 4, 64, None), (2, 9, 4, 64, None),
               (2, 33, 4, 64, None), (2, 256, 4, 16, None), (2, 256, 4, 32, None),
               (2, 256, 4, 64, 8), (2, 33, 4, 64, 1)]
 RWKV_TIMED = (8, 1024, 64, 64)
+# mamba2: (B, S, H, P, G, N, view offset), nonzero h0; the edges of
+# chip_smoke.py's cases (offset 1: x, B, C are views whose rows are not
+# 16-byte aligned)
+MAMBA_CASES = [(8, 1024, 64, 64, 1, 64, None), (2, 1, 4, 64, 1, 64, None),
+               (2, 65, 4, 64, 1, 64, None), (2, 256, 4, 16, 1, 64, None),
+               (2, 256, 4, 64, 1, 16, None), (2, 256, 4, 64, 1, 128, None),
+               (2, 256, 4, 64, 4, 64, None), (2, 256, 4, 64, 1, 64, 8),
+               (2, 65, 4, 64, 1, 64, 1)]
+MAMBA_TIMED = (8, 1024, 64, 64, 1, 64)
 
 
 def main() -> int:
@@ -73,10 +88,11 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_scan as m2
     from repro_torch.kernels import rwkv6_scan as r6
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("flash", "decode", "rwkv6"), default="flash")
+    ap.add_argument("--kernel", choices=("flash", "decode", "rwkv6", "mamba2"), default="flash")
     ap.add_argument("--splits", default="", help="decode: split counts to time, e.g. 2,4,8")
     ap.add_argument("variants", nargs="*")
     args = ap.parse_args()
@@ -87,6 +103,7 @@ def main() -> int:
         "flash": ("flash_attention.cu", "flash_attention_fwd", fa._ARGTYPES, "fa_fwd_bf16"),
         "decode": ("decode_attention.cu", "flash_decode", dec._ARGTYPES, "decode_bf16"),
         "rwkv6": ("rwkv6_scan.cu", "rwkv6_scan", r6._ARGTYPES, "rwkv6_bf16"),
+        "mamba2": ("mamba2_scan.cu", "mamba2_scan", m2._ARGTYPES, "mamba2_bf16"),
     }[args.kernel]
     out_dir = ROOT / "build" / f"{args.kernel}_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -124,6 +141,10 @@ def main() -> int:
             occ = cdll.rwkv6_ctas_per_sm
             occ.restype, occ.argtypes = ctypes.c_int, [ctypes.c_int]
             print(f"[occupancy {name}] {occ(64)} CTAs an SM at K = V = 64", flush=True)
+        elif args.kernel == "mamba2":
+            occ = cdll.mamba2_ctas_per_sm
+            occ.restype, occ.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+            print(f"[occupancy {name}] {occ(64, 64)} CTAs an SM at P = N = 64", flush=True)
 
     def use(name):
         build.function = lambda *a, **k: fns[name]
@@ -131,6 +152,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.kernel == "rwkv6":
         _rwkv6(torch, r6, fns, use, gen)
+        print(f"[card] {cs.nvidia_smi_line()}")
+        return 0
+    if args.kernel == "mamba2":
+        _mamba2(torch, m2, fns, use, gen)
         print(f"[card] {cs.nvidia_smi_line()}")
         return 0
     if args.kernel == "decode":
@@ -236,6 +261,42 @@ def _rwkv6(torch, r6, fns, use, gen):
     for name in runs + runs[::-1]:
         use(name)
         times[name].append(cs.time_ms(torch, r6.rwkv6_scan, ins))
+    for name, t in times.items():
+        print(f"[time serve] {name}: {', '.join(f'{x:.4f}' for x in t)} ms"
+              f"{' (fails the check)' if name in failed else ''}", flush=True)
+
+
+def _mamba2(torch, m2, fns, use, gen):
+    from repro_torch.kernels import ref
+
+    bf = torch.bfloat16
+    failed = set()
+    for name in fns:
+        use(name)
+        bad, share_y, share_s = 0, 0.0, 0.0
+        for B, S, H, P, G, N, offset in MAMBA_CASES:
+            args = cs._mamba_inputs(torch, gen, B, S, H, P, G, N, bf, h0=True, offset=offset)
+            got = m2.mamba2_scan(*args)
+            up = cs._upcast(args)
+            want = m2.mamba2_plain(*up) if S % 128 == 0 else ref.mamba2_scan_naive(*up)
+            _, n, sh = cs.beyond(got[0], want[0], 2e-2, 2e-2)
+            bad, share_y = bad + n, max(share_y, sh)
+            _, n, sh = cs.beyond(got[1], want[1], 1e-4, 1e-4)
+            bad, share_s = bad + n, max(share_s, sh)
+        print(f"[check {name}] {'ok' if bad == 0 else f'FAIL ({bad} elements)'}; at most "
+              f"{100 * share_y:.0f}% of the y limit, {100 * share_s:.0f}% of the state limit",
+              flush=True)
+        if bad:
+            failed.add(name)
+    runs = list(fns)
+    B, S, H, P, G, N = MAMBA_TIMED
+    nbytes = 2 * 2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * G * N + 4 * B * H * P * N
+    ins = cs.copies_beyond_l2(
+        lambda: cs._mamba_inputs(torch, gen, B, S, H, P, G, N, bf)[:5], nbytes)
+    times = {n: [] for n in runs}
+    for name in runs + runs[::-1]:
+        use(name)
+        times[name].append(cs.time_ms(torch, m2.mamba2_scan, ins))
     for name, t in times.items():
         print(f"[time serve] {name}: {', '.join(f'{x:.4f}' for x in t)} ms"
               f"{' (fails the check)' if name in failed else ''}", flush=True)
