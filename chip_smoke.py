@@ -47,7 +47,23 @@ Phases, each of which raises on failure (nothing is caught):
              forced; then the same check on paths with planted faults,
              which it must reject; and profiles one prefill and a window of
              decode steps.
-6. report  — one ``kernels`` JSON line, the nvidia-smi line, and the result
+6. grads   — the three autograd Functions of ``kernels/ops.py`` (kernel
+             forward, plain backward) against plain autograd in fp32 at
+             small shapes, at the reference's custom-VJP limits, and a
+             backward that drops one input's gradient, which must fail.
+7. train   — three paths in bf16 with random weights from a seed, through
+             ``make_train_state``/``make_train_step``: tinyllama-1.1b and
+             zamba2-1.2b full (batch 8, seq 1024), rwkv6-7b at full width
+             with 4 of its 32 layers (batch 8).  Each takes 4 steps on one
+             repeated batch (step ms, tok/s, peak memory; the loss must be
+             finite and fall; launches a step against the count the config
+             gives), profiles one step (the device time of each plain
+             backward), then takes one step from that state on the kernel
+             path, the plain path, the plain path in the kernels'
+             arithmetic (the noise floor) and the kernel path with a
+             planted backward fault: loss, grad norm and the new master
+             per leaf must lie within twice the floor, the fault beyond.
+8. report  — one ``kernels`` JSON line, the nvidia-smi line, and the result
              line ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -982,6 +998,7 @@ def phase_main(torch, smi, arch, prompt):
     from repro_torch.launch.steps import (make_decode_step, make_generate_loop,
                                           make_prefill_step)
     from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
 
     tag = f"[main {arch}]"
     cfg = get_config(arch)
@@ -999,8 +1016,8 @@ def phase_main(torch, smi, arch, prompt):
         if tuple(leaf.shape) != shape or leaf.dtype != dtypes[dname]:
             raise AssertionError(f"{arch}: parameter {path} is {tuple(leaf.shape)} {leaf.dtype}, "
                                  f"expected {shape} {dname}")
-    n_params = sum(t.numel() for t in _leaves(params))
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     floor_ms = n_bytes / PEAK_BYTES * 1e3
     log(f"{tag} {n_params / 1e9:.3f} B parameters ({n_bytes / 1e9:.2f} GB) initialised on "
         f"the card in {t_init:.1f} s (peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
@@ -1142,10 +1159,12 @@ def _parity(name, got, want):
     """Logits of every step and the cache (final and as primed by the
     prefill) of a teacher-forced run against the plain path's: max abs error
     and elements beyond the limit atol + rtol * |plain|."""
+    from repro_torch.tree import tree_leaves
+
     res = {}
     for part, g, w in (("logits", got[0], want[0]),
-                       ("cache", [*_leaves(got[1]), *_leaves(got[2])],
-                        [*_leaves(want[1]), *_leaves(want[2])])):
+                       ("cache", tree_leaves([got[1], got[2]]),
+                        tree_leaves([want[1], want[2]]))):
         readings = [beyond(a, b, LIMIT_ATOL, LIMIT_RTOL) for a, b in zip(g, w)]
         res[f"{part}_max_abs_err"] = max(r[0] for r in readings)
         res[f"{part}_beyond"] = sum(r[1] for r in readings)
@@ -1281,9 +1300,12 @@ def _profile(torch, name, fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies); CPU ops carry their kernels'
-    # device time as well and would count it twice
+    # device time as well and would count it twice, and so do the device-side
+    # spans of record_function ranges (ops' "plain backward: <kernel>")
+    cpu = torch.autograd.DeviceType.CPU
     rows = [e for e in prof.key_averages()
-            if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
+            if e.device_type != cpu and e.self_device_time_total > 0
+            and not e.key.startswith("plain backward")]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     if busy_ms == 0:
         log(f"[profile] {name}: wall {wall_ms:.2f} ms; the profiler saw no device time "
@@ -1295,18 +1317,266 @@ def _profile(torch, name, fn):
         f"{n_kernels} device ops")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:90]}")
-    return out, {"wall_ms": wall_ms, "busy_ms": busy_ms, "device_ops": n_kernels}
+    # the kernel time inside the ranges ops' Functions mark around their
+    # plain backward: the CPU-side range's device time is the sum of the
+    # kernels its ops launched (its device-side span would add the gaps)
+    plain_bwd = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+                 if e.device_type == cpu and e.key.startswith("plain backward")}
+    for key, ms in sorted(plain_bwd.items()):
+        log(f"[profile]   {key}: {ms:.3f} ms device, {100 * ms / busy_ms:.1f}% of the busy time"
+            if ms > 0 else f"[profile]   {key}: device time not measured (0 attributed)")
+    return out, {"wall_ms": wall_ms, "busy_ms": busy_ms, "device_ops": n_kernels,
+                 "plain_backward_ms": plain_bwd}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+# the reference's custom-VJP test limits (tests/test_kernels.py), atol = rtol
+GRAD_TOL = {"attention": 2e-4, "mamba2": 2e-3, "rwkv6": 2e-3}
+# full-width train paths: (arch, layers kept (None: all), batch, seq).  rwkv6-7b
+# keeps 4 of its 32 layers: params, grads, master, m and v take ~16 B a
+# parameter, ~121 GB at 7.58 B; its plain chunked WKV backward builds a
+# (B, 64, 64, H, K) fp32 decay tensor a chunk, 0.54 GB a chunk at batch 8
+# (batch 4 peaked at 33.4 GB on an H100 80GB HBM3, 700 W).
+TRAIN_PATHS = (("tinyllama-1.1b", None, 8, 1024), ("zamba2-1.2b", None, 8, 1024),
+               ("rwkv6-7b", 4, 8, 1024))
+TRAIN_STEPS = 4
+TRAIN_LR = 1e-3
+
+
+def _dropping(fn_cls, index):
+    """``fn_cls`` with a planted fault: its backward returns zeros for input
+    ``index``."""
+    class Dropped(fn_cls):
+        @staticmethod
+        def backward(ctx, *grads):
+            out = list(fn_cls.backward(ctx, *grads))
+            out[index] = out[index].new_zeros(out[index].shape)
+            return tuple(out)
+    return Dropped
+
+
+def _grad_case(torch, ops, name, fwd, args, tol, fn_cls, drop):
+    """Kernel forward + plain backward (ops' Function, ``impl="cuda"``)
+    against plain autograd (``impl="ref"``), end to end through a loss that
+    reads every output; then the same with the backward dropping input
+    ``drop``'s gradient, which the limit must reject."""
+    def grads(impl):
+        xs = [a.detach().requires_grad_() for a in args]
+        outs = fwd(*xs, impl=impl)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        loss = sum((o.float() ** 2).sum() for o in outs)
+        return torch.autograd.grad(loss, xs)
+
+    before = ops.launch_counts()[name]
+    got = grads("cuda")
+    if ops.launch_counts()[name] != before + 1:
+        raise AssertionError(f"{name}: the Function's forward did not launch the kernel")
+    want = grads("ref")
+    errs = [assert_close(f"grad {name} fp32 d{i}", g, w, tol)
+            for i, (g, w) in enumerate(zip(got, want))]
+    with _planted(ops, **{fn_cls.__name__: _dropping(fn_cls, drop)}):
+        faulty = grads("cuda")
+    err, bad, _ = beyond(faulty[drop], want[drop], tol, tol)
+    log(f"[grads] control, {name} backward drops d{drop}: {bad} elements beyond "
+        f"{tol:g} (max_abs_err {err:.3e}): {'rejected' if bad else 'NOT rejected'}")
+    if not bad:
+        raise AssertionError(f"{name}: a backward that drops d{drop} is not rejected")
+    return {"max_abs_err": max(errs), "tol": tol, "control_beyond": bad}
+
+
+def phase_grads(torch):
+    """The three autograd Functions on the card in fp32, at small shapes."""
+    from repro_torch.kernels import ops
+
+    # the reference's custom-VJP tests are at (1, 2, 64, 32) and (1, 64, 2, 8):
+    # small shapes the kernels take (D = 64; P, N, K = 16), with two chunks of
+    # each plain backward
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    f32 = torch.float32
+    q, k, v = _prefill_inputs(torch, gen, 1, 4, 2, 128, 128, 64, f32)
+    x, dt, A, Bm, Cm, _ = _mamba_inputs(torch, gen, 1, 256, 2, 16, 1, 16, f32)
+    r, kk, vv, w, u, _ = _rwkv_inputs(torch, gen, 1, 128, 2, 16, f32)
+    out = {
+        "attention": _grad_case(torch, ops, "flash_attention_fwd", ops.attention, (q, k, v),
+                                GRAD_TOL["attention"], ops._AttentionFn, 1),
+        "mamba2": _grad_case(torch, ops, "mamba2_scan", ops.mamba2, (x, dt, A, Bm, Cm),
+                             GRAD_TOL["mamba2"], ops._Mamba2Fn, 0),
+        "rwkv6": _grad_case(torch, ops, "rwkv6_scan", ops.rwkv6, (r, kk, vv, w, u),
+                            GRAD_TOL["rwkv6"], ops._RWKV6Fn, 1),
+    }
+    log("[grads] " + json.dumps(out))
+    return out
+
+
+def _train_config(arch, layers):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = replace(cfg, n_layers=layers, block_pattern=cfg.blocks[:layers])
+    return cfg
+
+
+def _expected_train_launches(cfg):
+    """Kernel launches in one train step: each layer's forward, and again
+    in its recomputation under remat; the backward is plain torch."""
+    per = 2 if cfg.remat else 1
+    return {k: 0 if k == "flash_decode" else per * n for k, n in _expected_launches(cfg).items()}
+
+
+def _floor_train(torch, cfg):
+    """Replacements for ops: plain, differentiable attention and scans in
+    the kernels' arithmetic (fp32 on the same bf16 values; the scans at the
+    kernels' chunks)."""
+    from repro_torch.kernels import ref
+
+    def attention(q, k, v, causal=True, scale=None, impl="auto"):
+        return ref.attention_blockwise(q.float(), k.float(), v.float(), causal,
+                                       scale).to(q.dtype)
+
+    return dict(_floor_scan(cfg) if cfg.mamba is not None or cfg.rwkv is not None else {},
+                attention=attention)
+
+
+def _train_control(ops, cfg):
+    """(fault, replacements for ops): the kernel path with a backward that
+    drops the gradient of an input the model trains through."""
+    if cfg.mamba is not None:
+        return "mamba2 backward drops ddt", {"_Mamba2Fn": _dropping(ops._Mamba2Fn, 1)}
+    if cfg.rwkv is not None:
+        return "rwkv6 backward drops dk", {"_RWKV6Fn": _dropping(ops._RWKV6Fn, 1)}
+    return "attention backward drops dk", {"_AttentionFn": _dropping(ops._AttentionFn, 1)}
+
+
+def phase_train(torch, smi, arch, layers, batch_size, seq):
+    """Train one architecture at full width: timed steps, a profiled step,
+    and one step on the kernel path against the plain path."""
+    from repro_torch.bridge import leaf_names
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves, tree_map
+    import numpy as np
+
+    cfg = _train_config(arch, layers)
+    tag = f"[train {arch}]"
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+    model = build_model(cfg)
+    rng = np.random.default_rng(4)
+    seqs = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch_size, seq + 1))).cuda()
+    batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model, opt_cfg, torch.Generator(device="cuda").manual_seed(0))
+    names = leaf_names(state["params"])
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    step = make_train_step(model, opt_cfg)
+    want = _expected_train_launches(cfg)
+    times, losses, gnorms, launches = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        launches.append(counts)
+        losses.append(met["loss"].item())
+        gnorms.append(met["grad_norm"].item())
+        if counts != want:
+            raise AssertionError(f"{arch} train step {i + 1}: launch counts {counts}, "
+                                 f"expected {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = min(times[1:]) * 1e3
+    tok_s = batch_size * seq / (step_ms / 1e3)
+    depth = f"{cfg.n_layers} layers" + (f" of {layers} kept" if layers else "")
+    log(f"{tag} {n_params / 1e9:.3f} B parameters ({depth}), batch {batch_size} x seq {seq}, "
+        f"remat {'on' if cfg.remat else 'off'}, bf16, AdamW lr {TRAIN_LR:g} warmup 1: step "
+        f"{step_ms:.2f} ms (min of steps 2-{TRAIN_STEPS}: "
+        f"{[round(t * 1e3, 2) for t in times]}), {tok_s:.0f} tok/s, peak "
+        f"{peak_gb:.2f} GB allocated, on {smi}")
+    log(f"{tag} loss {losses[0]:.4f} -> {losses[-1]:.4f} ({[round(x, 4) for x in losses]}), "
+        f"grad norm {[round(x, 4) for x in gnorms]}")
+    log(f"{tag} launches per step: {launches[0]} (expected {want}, every step)")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"{arch}: a loss or grad norm is not finite: {losses}, {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: the loss did not fall over {TRAIN_STEPS} steps on one "
+                             f"repeated batch: {losses}")
+
+    _, prof = _profile(torch, f"{arch} train step", lambda: step(state, batch))
+    del met
+
+    # parity: one step from the state the steps above left (its moments
+    # populated, so the update is no longer sign(g)) on the kernel path, the
+    # plain path, the plain path in the kernels' arithmetic (the noise
+    # floor) and the kernel path with a planted backward fault
+    plain = build_model(replace(cfg, attn_impl="ref", scan_impl="ref"))
+    base = tree_map(lambda t: t.clone(), state)
+
+    def one_step(m, patch):
+        tree_map(lambda dst, src: dst.copy_(src), state, base)
+        with _planted(ops, **patch):
+            _, met = make_train_step(m, opt_cfg)(state, batch)
+        return {"loss": met["loss"].item(), "grad_norm": met["grad_norm"].item(),
+                "master": tree_leaves(state["opt"]["master"])}
+
+    ref_out = one_step(plain, {})
+    ref_out["master"] = [t.clone() for t in ref_out["master"]]
+    # the plain step's update per leaf: the scale of a master's error
+    ref_out["update_norm"] = [(a - b).norm() for a, b in
+                              zip(ref_out["master"], tree_leaves(base["opt"]["master"]))]
+
+    def rel(out):
+        return {"loss": abs(out["loss"] - ref_out["loss"]) / abs(ref_out["loss"]),
+                "grad_norm": abs(out["grad_norm"] - ref_out["grad_norm"]) / ref_out["grad_norm"],
+                **{f"master {n}": ((a - b).norm() / u.clamp_min(1e-30)).item() for n, a, b, u in
+                   zip(names, out["master"], ref_out["master"], ref_out["update_norm"])}}
+
+    floor = rel(one_step(plain, _floor_train(torch, cfg)))
+    limit = {key: 2 * val + 1e-3 for key, val in floor.items()}
+    kernel = rel(one_step(model, {}))
+    fault, patch = _train_control(ops, cfg)
+    control = rel(one_step(model, patch))
+
+    def summary(r):
+        worst = max((k for k in r if k.startswith("master")), key=lambda k: r[k] / limit[k])
+        return (f"loss {r['loss']:.2e}, grad norm {r['grad_norm']:.2e}, master worst "
+                f"{worst[7:]} {r[worst]:.2e} (limit {limit[worst]:.2e})")
+
+    bad = sorted(k for k, v in kernel.items() if not v <= limit[k])
+    caught = sorted(k for k, v in control.items() if not v <= limit[k])
+    log(f"{tag} one step, kernel path vs plain path (relative; master: error norm over the "
+        f"plain step's update norm, per leaf): {summary(kernel)}; noise floor (plain path in "
+        f"the kernels' arithmetic): {summary(floor)}; limit 2 x floor + 1e-3 each: "
+        f"{'FAIL ' + str(bad) if bad else 'ok'}")
+    log(f"{tag} control, {fault}: {summary(control)}; "
+        f"{'rejected on ' + str(len(caught)) + ' readings' if caught else 'NOT rejected'}")
+    if bad:
+        raise AssertionError(f"{arch}: the kernel path's train step differs from the plain "
+                             f"path beyond twice the noise floor on {bad}")
+    if not caught:
+        raise AssertionError(f"{arch} train control {fault}: the limit does not reject it")
+    del ref_out, base, state
+    peak_all_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag} peak {peak_all_gb:.2f} GB allocated with the parity steps (the state, "
+        f"its copy and the plain step's master held beside a step)")
+    worst = max(kernel, key=lambda k: kernel[k] / limit[k])
+    return {"arch": arch, "layers": cfg.n_layers, "params": n_params, "batch": batch_size,
+            "seq": seq, "step_ms": step_ms, "step_times_ms": [t * 1e3 for t in times],
+            "tok_per_s": tok_s, "peak_gb": peak_gb, "peak_with_parity_gb": peak_all_gb,
+            "losses": losses, "grad_norms": gnorms,
+            "launches_per_step": launches[0],
+            "launches": {k: sum(c[k] for c in launches) for k in launches[0]},
+            "parity": {"kernel": {k: kernel[k] for k in ("loss", "grad_norm")},
+                       "kernel_worst": [worst, kernel[worst], limit[worst]],
+                       "floor": {k: floor[k] for k in ("loss", "grad_norm")},
+                       "control": fault, "control_caught": len(caught)},
+            "profile": prof}
 
 
 def main() -> int:
@@ -1330,8 +1600,18 @@ def main() -> int:
         log(f"[main {arch}] " + json.dumps(dict(results[-1], card=smi)))
         gc.collect()  # free the model before the next one loads
         torch.cuda.empty_cache()
-    for row in rows:  # launches on the three main paths together
-        row["launches"] = sum(r["launches"][row["name"]] for r in results)
+    grads = phase_grads(torch)
+    trained = []
+    for arch, layers, batch_size, seq in TRAIN_PATHS:
+        trained.append(phase_train(torch, smi, arch, layers, batch_size, seq))
+        log(f"[train {arch}] " + json.dumps(dict(trained[-1], card=smi)))
+        gc.collect()
+        torch.cuda.empty_cache()
+    for row in rows:  # launches on the three served and the three trained paths together
+        row["launches"] = sum(r["launches"][row["name"]] for r in results + trained)
+        row["launches_train"] = sum(r["launches"][row["name"]] for r in trained)
+        row["grad_parity"] = grads.get({"flash_attention_fwd": "attention", "mamba2_scan": "mamba2",
+                                        "rwkv6_scan": "rwkv6"}.get(row["name"]))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

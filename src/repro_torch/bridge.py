@@ -17,6 +17,8 @@ from typing import Any, List
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map
+
 
 def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
     arr = np.array(arr, order="C", copy=True)  # owned and writable: JAX's are read-only
@@ -39,22 +41,15 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_numpy(tree: Any, device) -> Any:
-    """Nested dicts/lists of numpy arrays -> the same nesting of tensors on
+    """Nested dicts/lists of numpy arrays (a parameter tree or a whole train
+    state, 0-d int32 ``step`` included) -> the same nesting of tensors on
     ``device``."""
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, device) for v in tree]
-    return _to_tensor(np.asarray(tree), device)
+    return tree_map(lambda a: _to_tensor(np.asarray(a), device), tree)
 
 
 def params_to_numpy(params: Any) -> Any:
     """Nested dicts/lists of tensors -> the same nesting of numpy arrays."""
-    if isinstance(params, dict):
-        return {k: params_to_numpy(v) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return [params_to_numpy(v) for v in params]
-    return _to_numpy(params)
+    return tree_map(_to_numpy, params)
 
 
 def leaf_names(tree: Any, prefix: str = "") -> List[str]:

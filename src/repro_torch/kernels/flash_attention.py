@@ -65,8 +65,11 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("empty batch, heads or sequence")
     if max(q.shape[0], q.shape[1]) > 65535:
         raise ValueError("batch and heads must be <= 65535 (grid limit)")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("the CUDA kernel has no backward yet")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the backward is ops' autograd.Function, whose forward calls this
+        # wrapper with grad mode off
+        raise NotImplementedError("the kernel has no backward of its own: "
+                                  "differentiate through repro_torch.kernels.ops")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:

@@ -26,6 +26,9 @@ launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
 # the kernels' chunk, in positions (``L`` of csrc/mamba2_scan.cu)
 CHUNK = 64
+# the reference's chunk, at which the plain version (and so the backward)
+# runs; S must be a multiple of it or shorter
+REF_CHUNK = 128
 
 _P_DIMS = (16, 32, 64)
 _N_DIMS = (16, 32, 64, 128)
@@ -39,8 +42,8 @@ def mamba2_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor,
                  h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """What the kernel computes, in plain torch: the chunked reference at
-    the reference's chunk, ``min(128, S)`` (S must be a multiple of it)."""
-    return ref.mamba2_scan_chunked(x, dt, A, Bm, Cm, h0, chunk=min(128, x.shape[1]))
+    the reference's chunk, ``min(REF_CHUNK, S)`` (S must be a multiple of it)."""
+    return ref.mamba2_scan_chunked(x, dt, A, Bm, Cm, h0, chunk=min(REF_CHUNK, x.shape[1]))
 
 
 def _check(x, dt, A, Bm, Cm, h0) -> None:
@@ -75,8 +78,11 @@ def _check_cuda(x, dt, A, Bm, Cm, h0) -> None:
                          f"not {P}, {N}")
     if min(Bsz, S, H) == 0 or max(Bsz, H) > 65535:
         raise ValueError("empty batch, sequence or heads, or batch/heads > 65535 (grid limit)")
-    if any(t.requires_grad for t in ts):
-        raise NotImplementedError("the CUDA kernel has no backward yet")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        # the backward is ops' autograd.Function, whose forward calls this
+        # wrapper with grad mode off
+        raise NotImplementedError("the kernel has no backward of its own: "
+                                  "differentiate through repro_torch.kernels.ops")
     for name, t in (("x", x), ("B", Bm), ("C", Cm)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: the last dim must be contiguous (stride 1)")

@@ -30,6 +30,9 @@ launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 # matrix, in positions (``L`` and ``SUB`` of csrc/rwkv6_scan.cu)
 CHUNK = 32
 SUB = 8
+# the reference's chunk, at which the plain version (and so the backward)
+# runs; S must be a multiple of it or shorter
+REF_CHUNK = 64
 
 _HEAD_DIMS = (16, 32, 64)
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -42,8 +45,8 @@ def rwkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tens
                 u: torch.Tensor,
                 s0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """What the kernel computes, in plain torch: the chunked reference at
-    the reference's chunk, ``min(64, S)`` (S must be a multiple of it)."""
-    return ref.rwkv6_scan_chunked(r, k, v, w, u, s0, chunk=min(64, r.shape[1]))
+    the reference's chunk, ``min(REF_CHUNK, S)`` (S must be a multiple of it)."""
+    return ref.rwkv6_scan_chunked(r, k, v, w, u, s0, chunk=min(REF_CHUNK, r.shape[1]))
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -76,8 +79,11 @@ def _check_cuda(r, k, v, w, u, s0) -> None:
         raise ValueError(f"kernel takes K == V in {_HEAD_DIMS}, not K={K}, V={V}")
     if min(Bsz, S, H) == 0 or max(Bsz, H) > 65535:
         raise ValueError("empty batch, sequence or heads, or batch/heads > 65535 (grid limit)")
-    if any(t.requires_grad for t in ts):
-        raise NotImplementedError("the CUDA kernel has no backward yet")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        # the backward is ops' autograd.Function, whose forward calls this
+        # wrapper with grad mode off
+        raise NotImplementedError("the kernel has no backward of its own: "
+                                  "differentiate through repro_torch.kernels.ops")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: the last dim must be contiguous (stride 1)")

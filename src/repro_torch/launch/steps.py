@@ -1,13 +1,43 @@
-"""Prefill / decode step builders and the greedy generate loop (PyTorch port).
-
-Training steps wait for the training slice of the port.
-"""
+"""Train, prefill and decode steps and the greedy generate loop
+(PyTorch port), twins of the reference's ``launch/steps.py``."""
 
 from __future__ import annotations
+
+from typing import Any, Dict
 
 import torch
 
 from repro_torch.models.api import Model
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def make_train_state(model: Model, opt_cfg: AdamWConfig, gen: torch.Generator) -> Dict[str, Any]:
+    """``{"params", "opt": {"m", "v", "step", "master"}}``, the reference's
+    nesting, with random weights from ``gen`` on its device."""
+    params = model.init(gen)
+    return {"params": params, "opt": adamw_init(opt_cfg, params)}
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig):
+    """``train_step(state, batch) -> (state, {"loss", "grad_norm", "lr"})``.
+
+    The loss is differentiated with respect to fresh leaves that share the
+    stored params' buffers, so the stored state carries no autograd flags;
+    AdamW then writes the new values into the state's buffers.  The metrics
+    are 0-d tensors on the params' device; nothing waits for the device.
+    """
+    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
+        with torch.enable_grad():
+            loss = model.loss(params, batch)
+            grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params)))
+        new_params, new_opt, metrics = adamw_update(opt_cfg, state["params"], grads,
+                                                    state["opt"])
+        metrics = dict(metrics, loss=loss.detach())
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step
 
 
 def make_prefill_step(model: Model, max_len: int):

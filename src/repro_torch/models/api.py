@@ -1,8 +1,5 @@
 """Model front door: ``build_model(cfg)`` returns a Model facade with
-init / prefill / decode_step bound to the decoder LM.
-
-``loss`` waits for the training slice of the port.
-"""
+init / loss / prefill / decode_step bound to the decoder LM."""
 
 from __future__ import annotations
 
@@ -17,6 +14,7 @@ from .config import ModelConfig, check_supported
 class Model:
     cfg: ModelConfig
     init: Callable
+    loss: Callable
     prefill: Callable
     decode_step: Callable
     logits: Optional[Callable] = None
@@ -27,6 +25,7 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda gen: lm.init(cfg, gen),
+        loss=lambda params, batch: lm.loss(cfg, params, batch),
         prefill=lambda params, batch, max_len: lm.prefill(cfg, params, batch, max_len),
         decode_step=lambda params, cache, token, pos: lm.decode_step(cfg, params, cache, token, pos),
         logits=lambda params, batch: lm.logits_fn(cfg, params, batch),

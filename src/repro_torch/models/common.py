@@ -14,6 +14,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 
@@ -103,6 +104,43 @@ def lm_head_logits(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+def _xent_chunk(cfg: ModelConfig, hh: torch.Tensor, wf: torch.Tensor,
+                labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked next-token loss summed over one (B, C) chunk."""
+    logits = hh.float() @ wf.t()  # (B,C,V) float32
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
+        logits = torch.where(pad_mask, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)  # (B,C)
+    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return ((lse - lab) * mask).sum()
+
+
+def chunked_softmax_xent(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
+                         out_w: Optional[torch.Tensor], h: torch.Tensor,
+                         labels: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token loss without keeping (B,S,V) logits.
+
+    Each chunk of ``min(cfg.loss_chunk, S)`` positions computes its (B,C,V)
+    fp32 logits, their log-sum-exp and the label logit under
+    ``torch.utils.checkpoint``, so that autograd keeps one chunk's logits at
+    a time and recomputes them in the backward pass.
+    """
+    B, S, D = h.shape
+    C = min(cfg.loss_chunk, S)
+    if S % C:
+        raise ValueError("seq len must divide loss_chunk")
+    wf = out_w.float()  # the untied head (tied embeddings are not ported yet)
+    mask = (torch.ones((B, S), dtype=torch.float32, device=h.device) if mask is None
+            else mask.to(torch.float32))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, C):
+        total = total + checkpoint(_xent_chunk, cfg, h[:, i:i + C], wf, labels[:, i:i + C],
+                                   mask[:, i:i + C], use_reentrant=False)
+    return total / torch.clamp(mask.sum(), min=1.0)
 
 
 def act_fn(name: str):

@@ -164,6 +164,7 @@ def check_supported(cfg: ModelConfig) -> None:
         ("tie_embeddings", cfg.tie_embeddings),
         ("parallel_block", cfg.parallel_block),
         ("mlp_act=" + cfg.mlp_act, cfg.mlp_act not in ("silu", "swiglu")),
+        ("remat_policy=" + cfg.remat_policy, cfg.remat_policy != "nothing"),
     ) if on]
     if missing:
         raise NotImplementedError(

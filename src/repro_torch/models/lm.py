@@ -12,6 +12,8 @@ stack is a Python loop over the leading axis here.
 
 API:
   init(cfg, gen) -> params
+  loss(cfg, params, batch) -> scalar                 (train)
+  backbone(cfg, params, batch) -> (final hidden states, aux loss)
   logits_fn(cfg, params, batch) -> (B,S,V) float32 logits
   init_cache(cfg, batch, max_len, device) -> list of stacked caches
   prefill(cfg, params, batch, max_len) -> (last_logits, cache)
@@ -19,6 +21,13 @@ API:
 
 The cache is updated in place; ``prefill``/``decode_step`` return it too,
 to keep the reference's signatures.
+
+Training differentiates through the same forward.  A stacked run is split
+into per-layer views with ``unbind``, whose backward stacks the layers'
+gradients into the stacked leaf in one copy; the shared block's gradients
+add up over its uses, as through the reference's scans.  ``cfg.remat``
+runs each layer under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` with nothing saved).
 """
 
 from __future__ import annotations
@@ -31,8 +40,10 @@ import torch
 from . import attention as attn
 from . import mlp as mlpm
 from . import ssm
-from .common import (apply_norm, dense_init, embed_tokens, embedding_init,
-                     lm_head_logits, norm_init, positions_for)
+from torch.utils.checkpoint import checkpoint
+
+from .common import (apply_norm, chunked_softmax_xent, dense_init, embed_tokens,
+                     embedding_init, lm_head_logits, norm_init, positions_for)
 from .config import ModelConfig, check_supported
 
 Tree = Dict[str, Any]
@@ -91,15 +102,24 @@ def _stacked(make: Callable[[], Tree], count: int) -> Tree:
     return out
 
 
+def _unstack(tree: Tree, count: int) -> List[Tree]:
+    """The ``count`` layers of a stacked tree, as views (``unbind``)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(count)]
+    return list(tree.unbind(0))
+
+
 def _walk(cfg: ModelConfig, params: Tree) -> Iterator[Tuple[int, int, str, Tree]]:
     """(group index, index in the group, block kind, layer params) for every
     layer in order; a ``shared_attn`` layer gets the shared block."""
     for gi, g in enumerate(layer_groups(cfg)):
-        for i in range(g.count):
-            if g.kind == "shared_attn":
+        if g.kind == "shared_attn":
+            for i in range(g.count):
                 yield gi, i, "attn", params["shared_block"]
-            else:
-                yield gi, i, g.kind, _index(params["layers"][gi], i)
+        else:
+            for i, lp in enumerate(_unstack(params["layers"][gi], g.count)):
+                yield gi, i, g.kind, lp
 
 
 # ---------------------------------------------------------------------------
@@ -170,13 +190,31 @@ def _apply_layer(cfg: ModelConfig, kind: str, lp: Tree, x: torch.Tensor,
     raise ValueError(kind)
 
 
-def logits_fn(cfg: ModelConfig, params: Tree, batch: Dict) -> torch.Tensor:
-    """Full-sequence logits (B,S,V) — tiny shapes and tests only."""
+def backbone(cfg: ModelConfig, params: Tree, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens -> final hidden states (B,S,D) and the total aux loss (zero:
+    no ported block has one)."""
     x = _embed(cfg, params, batch["tokens"])
     positions = positions_for(cfg, batch)
     for _, _, kind, lp in _walk(cfg, params):
-        x = _apply_layer(cfg, kind, lp, x, positions)
-    return _head(cfg, params, x)
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_apply_layer, cfg, kind, lp, x, positions, use_reentrant=False)
+        else:
+            x = _apply_layer(cfg, kind, lp, x, positions)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss(cfg: ModelConfig, params: Tree, batch: Dict) -> torch.Tensor:
+    h, aux = backbone(cfg, params, batch)
+    xent = chunked_softmax_xent(cfg, params["embed"], params.get("lm_head"), h,
+                                batch["labels"], batch.get("loss_mask"))
+    return xent + aux
+
+
+def logits_fn(cfg: ModelConfig, params: Tree, batch: Dict) -> torch.Tensor:
+    """Full-sequence logits (B,S,V) — tiny shapes and tests only."""
+    h, _ = backbone(cfg, params, batch)
+    return lm_head_logits(cfg, params["embed"], params.get("lm_head"), h)
 
 
 # ---------------------------------------------------------------------------

@@ -223,3 +223,84 @@ def test_cuda_mamba2_scan_edges_on_the_card():
             want = m2.mamba2_plain(*args) if S % 128 == 0 else ref.mamba2_scan_naive(*args)
             torch.testing.assert_close(y.float(), want[0].float(), atol=tol, rtol=tol)
             torch.testing.assert_close(h, want[1], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_train_steps_match_the_plain_path_on_the_card():
+    """Per ported architecture at smoke size in fp32 (attention head_dim 64,
+    which the flash kernel takes): two train steps on the kernel path
+    against the plain path from the same state, every state leaf at 1e-4;
+    each step launches each kernel once per layer.  Then the three autograd
+    Functions (kernel forward, plain backward) against plain autograd at
+    the reference's custom-VJP limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from dataclasses import replace
+
+    from repro_torch.bridge import leaf_names
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    # eps 1e-3: the update is continuous at the grads' scale (see
+    # tests/test_torch_train.py)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10, eps=1e-3)
+    wide = {"tinyllama-1.1b": dict(n_heads=2, n_kv_heads=1), "zamba2-1.2b": dict(head_dim=64),
+            "rwkv6-7b": {}}
+    for arch, kw in wide.items():
+        cfg = replace(get_config(arch, smoke=True), **kw)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        batches = [{"tokens": torch.randint(0, cfg.vocab_size, (2, 128), generator=g,
+                                            device="cuda"),
+                    "labels": torch.randint(0, cfg.vocab_size, (2, 128), generator=g,
+                                            device="cuda")} for _ in range(2)]
+        n = {k: sum(b == k for b in cfg.blocks) for k in ("attn", "shared_attn", "mamba2",
+                                                         "rwkv6")}
+        want = {"flash_attention_fwd": n["attn"] + n["shared_attn"], "flash_decode": 0,
+                "mamba2_scan": n["mamba2"], "rwkv6_scan": n["rwkv6"]}
+        states = []
+        for impl in ("cuda", "ref"):
+            model = build_model(replace(cfg, attn_impl=impl, scan_impl=impl))
+            state = make_train_state(model, opt, torch.Generator(device="cuda").manual_seed(0))
+            step = make_train_step(model, opt)
+            for batch in batches:
+                ops.reset_launch_counts()
+                state, met = step(state, batch)
+                counts = ops.launch_counts()
+                assert counts == (want if impl == "cuda" else dict.fromkeys(want, 0)), arch
+                assert torch.isfinite(met["loss"])
+            states.append(state)
+        for name, a, b in zip(leaf_names(states[0]), tree_leaves(states[0]),
+                              tree_leaves(states[1])):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=f"{arch} {name}")
+
+    # small shapes, as the reference's custom-VJP tests (the kernels take
+    # D = 64 and P, N, K = 16), two chunks of each plain backward
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn(1, 128, 4, 64, generator=g, device="cuda").transpose(1, 2)
+    k, v = (torch.randn(1, 128, 2, 64, generator=g, device="cuda").transpose(1, 2)
+            for _ in range(2))
+    x = torch.randn(1, 256, 2, 16, generator=g, device="cuda")
+    dt = torch.rand(1, 256, 2, generator=g, device="cuda") * 0.19 + 0.01
+    A = -(torch.rand(2, generator=g, device="cuda") * 1.5 + 0.5)
+    Bm, Cm = (torch.randn(1, 256, 1, 16, generator=g, device="cuda") for _ in range(2))
+    r, kk, vv = (torch.randn(1, 128, 2, 16, generator=g, device="cuda") for _ in range(3))
+    w = -torch.clamp(torch.round(torch.rand(1, 128, 2, 16, generator=g, device="cuda")
+                                 * 3 * 64), min=1) / 64
+    u = torch.randn(2, 16, generator=g, device="cuda")
+    for fn, args, tol, name in ((ops.attention, (q, k, v), 2e-4, "flash_attention_fwd"),
+                                (ops.mamba2, (x, dt, A, Bm, Cm), 2e-3, "mamba2_scan"),
+                                (ops.rwkv6, (r, kk, vv, w, u), 2e-3, "rwkv6_scan")):
+        grads = []
+        for impl in ("cuda", "ref"):
+            xs = [t.detach().requires_grad_() for t in args]
+            before = ops.launch_counts()[name]
+            outs = fn(*xs, impl=impl)
+            assert ops.launch_counts()[name] == before + (impl == "cuda")
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            grads.append(torch.autograd.grad(sum((o ** 2).sum() for o in outs), xs))
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol, msg=name)

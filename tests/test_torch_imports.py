@@ -33,7 +33,8 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch, repro_torch.launch.serve, repro_torch.bridge; "
+    code = ("import sys, repro_torch, repro_torch.launch.serve, repro_torch.bridge, "
+            "repro_torch.launch.steps, repro_torch.optim.adamw; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
