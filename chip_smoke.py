@@ -63,7 +63,24 @@ Phases, each of which raises on failure (nothing is caught):
              arithmetic (the noise floor) and the kernel path with a
              planted backward fault: loss, grad norm and the new master
              per leaf must lie within twice the floor, the fault beyond.
-8. report  — one ``kernels`` JSON line, the nvidia-smi line, and the result
+8. trainer — the walkthrough at full width through
+             ``repro_torch.runtime.Trainer`` (tinyllama-1.1b in bf16, batch
+             8 x 1024, synthetic shards read through ``OSDevice`` and
+             ``Foreactor(backend="io_uring", depth=32)``; free disk and
+             MemAvailable printed first, the depth cut if three
+             checkpoints do not fit): two continuous runs of 8 steps (the
+             noise floor), a run with write-behind saves every 4 steps
+             killed at step 6 (emergency save), a second trainer that
+             restores and finishes at 8, whose state must equal the
+             continuous run's (bit for bit if the two continuous runs
+             agree so, else within twice their spread per leaf), a
+             validated restore of the newest checkpoint; step ms with and
+             without a save in flight, the training thread's stall, save
+             and restore seconds, GB/s, loader ms, peak host RSS and card
+             memory.  Then at the smoke size a resume from the write-behind
+             checkpoint, which must hold, and the same with a planted
+             snapshot of views, which must be rejected.
+9. report  — one ``kernels`` JSON line, the nvidia-smi line, and the result
              line ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -1579,6 +1596,437 @@ def phase_train(torch, smi, arch, layers, batch_size, seq):
             "profile": prof}
 
 
+# ---------------------------------------------------------------------------
+# the trainer: batch loading, write-behind checkpoints, kill and restore
+# ---------------------------------------------------------------------------
+# the walkthrough's shape at full width: tinyllama-1.1b in bf16, synthetic
+# data (4 shards of 64 records), 8 steps of batch 8 x 1024, write-behind
+# saves every 4 steps, a simulated node failure at step 6
+TRAINER_ARCH = "tinyllama-1.1b"
+TRAINER_BATCH, TRAINER_SEQ = 8, 1024
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_KILL_AT = 8, 4, 6
+TRAINER_SHARDS, TRAINER_RECORDS = 4, 64
+TRAINER_DIR = ROOT / "build" / "trainer"
+# the planted torn snapshot runs at the smoke size: batch 4 x seq 64
+TRAINER_SMOKE = (4, 64)
+
+
+class _Run:
+    """One ``Trainer`` on local disk through ``OSDevice`` and
+    ``Foreactor(backend="io_uring", depth=32)``, wired as
+    ``launch/train.py`` wires it, with its batch loads timed and an optional
+    node failure at step ``kill_at``."""
+
+    def __init__(self, cfg, batch, seq, data, root=None, kill_at=0, manager=None):
+        from repro_torch.checkpoint import CheckpointManager, CheckpointPolicy
+        from repro_torch.core import Foreactor, OSDevice
+        from repro_torch.data import DataConfig, ShardedTokenDataset, TokenBatchLoader
+        from repro_torch.models import build_model
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.runtime import Trainer, TrainerConfig
+
+        disk = OSDevice()
+        self.fa = Foreactor(device=disk, backend="io_uring", depth=32)
+        ds = ShardedTokenDataset(disk, [f"{data}/shard_{i:05d}.rio"
+                                          for i in range(TRAINER_SHARDS)])
+        self.loader = TokenBatchLoader(ds, DataConfig(seq_len=seq, batch_size=batch, seed=0),
+                                       fa=self.fa)
+        self.load_s = []
+        load = self.loader.load
+
+        def timed_load(e, s):
+            if kill_at and e * self.loader.steps_per_epoch + s >= kill_at:
+                raise RuntimeError(f"simulated node failure at step {kill_at}")
+            t0 = time.perf_counter()
+            out = load(e, s)
+            self.load_s.append(time.perf_counter() - t0)
+            return out
+
+        self.loader.load = timed_load
+        self.ckpt = None if root is None else (manager or CheckpointManager)(
+            disk, str(root), fa=self.fa, num_shards=4)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAINER_STEPS)
+        tcfg = TrainerConfig(steps=TRAINER_STEPS, ckpt_every=TRAINER_CKPT_EVERY, log_every=1,
+                             retention=CheckpointPolicy(keep_last=3))
+        self.trainer = Trainer(build_model(cfg), opt, self.loader, self.ckpt, "cuda", tcfg)
+
+    def fit(self, killed=False):
+        try:
+            out = self.trainer.fit()
+        except RuntimeError as e:
+            if not (killed and "simulated node failure" in str(e)):
+                raise
+            return None
+        finally:
+            self.loader.close()
+            if self.ckpt is not None:
+                self.ckpt.close()  # frees its pinned snapshot buffer
+            self.fa.shutdown()
+        if killed:
+            raise AssertionError("the run with a node failure did not raise")
+        return out
+
+    def step_ms(self, in_flight=None):
+        """Step times after the first, all or those with/without a save in
+        flight at their end."""
+        return [ev.seconds * 1e3 for ev in self.trainer.events[1:]
+                if in_flight is None or ev.save_in_flight == in_flight]
+
+
+def _leaf_diffs(a, b):
+    """Per leaf of two state trees, the norm of a - b (0 iff the leaves are
+    equal; across runs it varies far less than the largest element's
+    difference does)."""
+    from repro_torch.tree import tree_leaves
+
+    return [(x.float() - y.float()).norm().item() for x, y in zip(tree_leaves(a), tree_leaves(b))]
+
+
+def _ulp(t):
+    """One rounding step of a floating leaf at its largest magnitude (0 for
+    integer leaves)."""
+    import torch
+
+    if not t.is_floating_point() or not t.numel():
+        return 0.0
+    m = t.abs().max().float().item()
+    return torch.finfo(t.dtype).eps * 2.0 ** math.floor(math.log2(m)) if m else 0.0
+
+
+def _resume_check(tag, names, resumed, cont, spread):
+    """Resume equals continuous: bit for bit where two continuous runs
+    agree bit for bit, else every state leaf within twice their spread
+    (norms of the differences, per leaf).  A leaf's spread counts as at
+    least one rounding step at its largest magnitude: one pair of runs can
+    miss a one-step flip in a small leaf.
+    Logs the reading; returns (rule, leaves beyond it, worst leaf)."""
+    from repro_torch.tree import tree_leaves
+
+    bitwise = not any(spread)
+    diff = _leaf_diffs(resumed, cont)
+    limit = [0.0 if bitwise else 2 * max(s, _ulp(t))
+             for s, t in zip(spread, tree_leaves(cont))]
+    bad = [n for n, d, lim in zip(names, diff, limit) if d > lim]
+    ratio = [d / lim if lim else (math.inf if d else 0.0) for d, lim in zip(diff, limit)]
+    i = max(range(len(names)), key=ratio.__getitem__)
+    rule = ("bit for bit" if bitwise else
+            "within 2 x the spread of two continuous runs (at least one rounding step)")
+    log(f"{tag} resumed vs continuous, {rule}: {len(bad)} of {len(names)} leaves beyond; "
+        f"worst {names[i]} |diff| {diff[i]:.3e} (spread {spread[i]:.3e})")
+    return rule, bad, {"leaf": names[i], "diff": diff[i], "spread": spread[i]}
+
+
+def _view_snapshot_manager():
+    """Planted fault: a write-behind snapshot that keeps views of the live
+    state, written when the trainer next waits for it, after the steps in
+    between have written into those buffers (what ``.numpy()`` views give
+    on the CPU)."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class ViewSnapshot(CheckpointManager):
+        _deferred = None
+
+        def save_async(self, step, tree, extra=None, delta=False):
+            self.wait_pending()
+            self._deferred = (step, tree, extra, delta)
+
+        def wait_pending(self):
+            super().wait_pending()
+            d, self._deferred = self._deferred, None
+            if d is not None:
+                self.save(*d)
+
+    return ViewSnapshot
+
+
+def _resume_from_write_behind(tag, cfg, data, root, manager, names, cont, spread):
+    """Kill at step 6, drop its emergency checkpoint (a hard kill leaves
+    none), restore the write-behind checkpoint of step 4, finish, and hold
+    the final state against the continuous run."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import OSDevice
+
+    batch, seq = TRAINER_SMOKE
+    _Run(cfg, batch, seq, data, root, kill_at=TRAINER_KILL_AT, manager=manager).fit(killed=True)
+    mgr = CheckpointManager(OSDevice(), str(root), num_shards=4)
+    mgr._collect(TRAINER_KILL_AT)
+    steps = mgr.committed_steps()
+    mgr.fa.shutdown()
+    if steps != [TRAINER_CKPT_EVERY]:
+        raise AssertionError(f"{tag}: committed {steps}, expected [{TRAINER_CKPT_EVERY}]")
+    run = _Run(cfg, batch, seq, data, root)
+    out = run.fit()
+    if run.trainer.events[0].step != TRAINER_CKPT_EVERY or out["final_step"] != TRAINER_STEPS:
+        raise AssertionError(f"{tag}: the resumed run did not go from step "
+                             f"{TRAINER_CKPT_EVERY} to {TRAINER_STEPS}")
+    return _resume_check(tag, names, out["state"], cont, spread)
+
+
+def _gil_probe(torch, cfg, batch, seq):
+    """Train-step ms alone, beside a background thread that runs zlib.crc32
+    over 64 MiB (a core and memory bandwidth busy, the GIL released while
+    it runs, as the checkpoint writer's CRCs and pwrites release it), and
+    beside one that holds the GIL in a Python loop (one step: it takes
+    15-70 s on an H100 80GB HBM3 at 700 W): whether the step's launches
+    wait for the GIL or for the host's cores."""
+    import threading
+    import zlib
+
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAINER_STEPS)
+    state = make_train_state(model, opt, torch.Generator(device="cuda").manual_seed(1))
+    step = make_train_step(model, opt)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(2))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    buf = bytes(64 << 20)
+
+    def python_loop(stop):
+        while not stop.is_set():
+            sum(range(1000))
+
+    def crc_loop(stop):
+        while not stop.is_set():
+            zlib.crc32(buf)
+
+    state, _ = step(state, batch)  # warm
+    torch.cuda.synchronize()
+    out = {}
+    for name, fn, steps in (("alone", None, 2), ("crc32_thread", crc_loop, 2),
+                            ("python_thread", python_loop, 1)):
+        stop = threading.Event()
+        th = threading.Thread(target=fn, args=(stop,), daemon=True) if fn else None
+        if th:
+            th.start()
+        ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            float(met["loss"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        stop.set()
+        if th:
+            th.join()
+        out[name] = ms
+    log(f"[trainer] GIL probe, step ms: " + "; ".join(
+        f"{k} {[round(x, 1) for x in v]}" for k, v in out.items()))
+    return out
+
+
+def _meminfo_gb(key):
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith(key + ":"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def _maxrss_gb():
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def phase_trainer(torch, smi):
+    """The walkthrough at full width through ``repro_torch.runtime.Trainer``:
+    two continuous runs (the noise floor), a run killed at step 6 after a
+    write-behind save at 4, a second trainer that restores the emergency
+    checkpoint and finishes at 8, a validated restore of the newest
+    checkpoint; then the planted torn snapshot at the smoke size."""
+    import shutil
+
+    from repro_torch.bridge import leaf_names
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import OSDevice
+    from repro_torch.data import DataConfig, write_synthetic_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_state
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    tag = "[trainer]"
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    TRAINER_DIR.mkdir(parents=True)
+    rss_before = _maxrss_gb()
+
+    # size before running: three checkpoints on disk (retention keeps 3);
+    # in host memory the pinned snapshot, a restore's read chunks and its
+    # leaf buffers
+    cfg = _train_config(TRAINER_ARCH, None)
+    state = make_train_state(build_model(cfg), AdamWConfig(),
+                             torch.Generator(device="cuda").manual_seed(0))
+    total = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    per_layer = sum(t.numel() * t.element_size()
+                    for n, t in zip(leaf_names(state), tree_leaves(state))
+                    if "['layers']" in n) / cfg.n_layers
+    del state
+    free_gb = shutil.disk_usage(TRAINER_DIR).free / 1e9
+    avail_gb = _meminfo_gb("MemAvailable")
+    full_layers = layers = cfg.n_layers
+    size = lambda L: (total - per_layer * (full_layers - L)) / 1e9  # noqa: E731
+    while layers > 1 and (3 * size(layers) + 2 > free_gb or 3.5 * size(layers) > avail_gb):
+        layers -= 1
+    log(f"{tag} free disk under {TRAINER_DIR}: {free_gb:.1f} GB, MemAvailable "
+        f"{avail_gb:.1f} GB; a full-depth checkpoint {size(cfg.n_layers):.2f} GB "
+        f"({cfg.n_layers} layers): " + ("no cut" if layers == cfg.n_layers else
+                                        f"depth cut to {layers} layers ({size(layers):.2f} GB)"))
+    if layers < cfg.n_layers:
+        cfg = _train_config(TRAINER_ARCH, layers)
+
+    data = TRAINER_DIR / "data"
+    write_synthetic_dataset(OSDevice(), str(data),
+                            DataConfig(seq_len=TRAINER_SEQ, batch_size=TRAINER_BATCH, seed=0),
+                            TRAINER_SHARDS, TRAINER_RECORDS, cfg.vocab_size)
+    root = TRAINER_DIR / "ckpt"
+    B, S = TRAINER_BATCH, TRAINER_SEQ
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    c1 = _Run(cfg, B, S, data)
+    cont = c1.fit()["state"]
+    names = leaf_names(cont)
+    c2 = _Run(cfg, B, S, data)
+    spread = _leaf_diffs(c2.fit()["state"], cont)
+    gc.collect()
+    log(f"{tag} two continuous runs of {TRAINER_STEPS} steps: "
+        + ("bit for bit equal" if not any(spread) else
+           f"{sum(1 for s in spread if s)} of {len(spread)} leaves differ, largest spread "
+           f"{max(spread):.3e} ({names[spread.index(max(spread))]})"))
+
+    killed = _Run(cfg, B, S, data, root, kill_at=TRAINER_KILL_AT)
+    killed.fit(killed=True)
+    if killed.ckpt.committed_steps() != [TRAINER_CKPT_EVERY, TRAINER_KILL_AT]:
+        raise AssertionError(f"{tag}: after the kill, committed {killed.ckpt.committed_steps()}")
+    gc.collect()
+    resumed = _Run(cfg, B, S, data, root)
+    out = resumed.fit()
+    ev = resumed.trainer.events
+    if ev[0].step != TRAINER_KILL_AT or out["final_step"] != TRAINER_STEPS:
+        raise AssertionError(f"{tag}: the second trainer ran steps "
+                             f"{[e.step for e in ev]} to {out['final_step']}")
+    rule, bad, worst = _resume_check(tag, names, out["state"], cont, spread)
+    if bad:
+        raise AssertionError(f"{tag}: the resumed run differs from the continuous one "
+                             f"({rule}) on {bad}")
+
+    # the newest committed checkpoint: validates and restores to the final state
+    mem = {k: _meminfo_gb(k) for k in ("MemAvailable", "Cached", "Dirty")}
+    log(f"{tag} host before the validated restore: " + ", ".join(
+        f"{k} {v:.1f} GB" for k, v in mem.items()))
+    mgr = CheckpointManager(OSDevice(), str(root), num_shards=4)
+    t0 = time.perf_counter()
+    got = mgr.restore_latest()
+    restore_s = time.perf_counter() - t0
+    if got is None or got[0] != TRAINER_STEPS or int(got[2]["step"]) != TRAINER_STEPS:
+        raise AssertionError(f"{tag}: the newest checkpoint does not restore step {TRAINER_STEPS}")
+    flat = got[1]
+    differ = [n for n, t in zip(names, tree_leaves(out["state"]))
+              if not torch.equal(flat[n].to(t.device), t)]
+    if differ or not mgr.validate(TRAINER_STEPS):
+        raise AssertionError(f"{tag}: the restored step {TRAINER_STEPS} differs from the "
+                             f"final state on {differ}")
+    ckpt_disk = sum(p.stat().st_size for p in (root / f"step_{TRAINER_STEPS:010d}").iterdir())
+    mgr.fa.shutdown()
+    del flat, got, out
+    counts = ops.launch_counts()
+    phase_s = time.perf_counter() - t_phase
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps_run = sum(len(r.trainer.events) for r in (c1, c2, killed, resumed))
+    want = {k: v * steps_run for k, v in _expected_train_launches(cfg).items()}
+    log(f"{tag} launches over the {steps_run} steps of the four runs: {counts} "
+        f"(expected {want})")
+    if counts != want:
+        raise AssertionError(f"{tag}: launch counts {counts}, expected {want}")
+
+    saves = {(r["step"], r["mode"]): r for r in killed.ckpt.save_log + resumed.ckpt.save_log}
+    wb = saves[(TRAINER_CKPT_EVERY, "async")]
+    em = saves[(TRAINER_KILL_AT, "sync")]
+    fin = saves[(TRAINER_STEPS, "sync")]
+    loads = [x * 1e3 for r in (c1, c2, killed, resumed) for x in r.load_s]
+    quiet = c1.step_ms() + c2.step_ms() + killed.step_ms(False)
+    busy = killed.step_ms(True)
+    readings = {
+        "layers": cfg.n_layers, "state_gb": size(cfg.n_layers),
+        "batch": B, "seq": S, "steps": steps_run,
+        "step_ms_no_save": quiet, "step_ms_save_in_flight": busy,
+        "ckpt_wait_s_write_behind": killed.trainer.ckpt_wait_s,
+        "ckpt_wait_s_final_save": resumed.trainer.ckpt_wait_s,
+        "write_behind_save_s": wb["seconds"], "write_behind_gb_s": wb["bytes"] / wb["seconds"] / 1e9,
+        "write_behind_copy_ms": wb["copy_ms"],
+        "emergency_save_s": em["seconds"], "final_save_s": fin["seconds"],
+        "restore_s_trainer": resumed.trainer.restore_s, "restore_s_validate": restore_s,
+        "restore_log": resumed.ckpt.restore_log + mgr.restore_log,
+        "meminfo_before_validated_restore_gb": mem,
+        "ckpt_bytes": wb["bytes"], "ckpt_bytes_on_disk": ckpt_disk,
+        "loader_ms_mean": sum(loads) / len(loads), "loader_ms_max": max(loads),
+        "peak_host_rss_gb": _maxrss_gb(), "peak_host_rss_gb_before": rss_before,
+        "peak_cuda_gb": peak_gb, "phase_s": phase_s,
+        "resume_rule": rule, "resume_worst": worst,
+        "continuous_bitwise": not any(spread), "launches": counts,
+    }
+    log(f"{tag} step ms without a save in flight {[round(x, 2) for x in quiet]}, with one "
+        f"{[round(x, 2) for x in busy]}; ckpt_wait_s {readings['ckpt_wait_s_write_behind']:.3f} "
+        f"(write-behind) / {readings['ckpt_wait_s_final_save']:.3f} (final save); "
+        f"on {smi}")
+    log(f"{tag} write-behind save of {wb['bytes'] / 1e9:.3f} GB: {wb['seconds']:.2f} s "
+        f"({readings['write_behind_gb_s']:.3f} GB/s; its device-to-host copies "
+        f"{wb['copy_ms']:.1f} ms of device time, ahead of the next step); emergency save "
+        f"{em['seconds']:.2f} s; "
+        f"final save {fin['seconds']:.2f} s; restore {resumed.trainer.restore_s:.2f} s "
+        f"(trainer) / {restore_s:.2f} s (validated); {ckpt_disk / 1e9:.3f} GB on disk")
+    log(f"{tag} restores (read the extents + check the CRCs): " + "; ".join(
+        f"step {r['step']} {r['seconds']:.2f} s = {r['read_s']:.2f} + {r['crc_s']:.2f}"
+        for r in readings["restore_log"]))
+    log(f"{tag} loader {readings['loader_ms_mean']:.3f} ms a batch (max "
+        f"{readings['loader_ms_max']:.3f}); peak host RSS {readings['peak_host_rss_gb']:.2f} GB "
+        f"(before the phase {rss_before:.2f}); peak {peak_gb:.2f} GB allocated on the card; "
+        f"{phase_s:.1f} s")
+    del cont, c1, c2, killed, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    readings["gil_probe_step_ms"] = _gil_probe(torch, cfg, B, S)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the control, at the smoke size: resumes from the write-behind
+    # checkpoint of step 4, with the manager and with a planted snapshot of
+    # views; the first must hold, the second must be caught
+    # (the smoke width's head_dim 16 is below the kernels' 64: plain attention)
+    scfg = replace(get_config(TRAINER_ARCH, smoke=True), attn_impl="ref")
+    sdata = TRAINER_DIR / "smoke-data"
+    batch, seq = TRAINER_SMOKE
+    write_synthetic_dataset(OSDevice(), str(sdata), DataConfig(seq_len=seq, batch_size=batch,
+                                                               seed=0),
+                            TRAINER_SHARDS, TRAINER_RECORDS, scfg.vocab_size)
+    scont = _Run(scfg, batch, seq, sdata).fit()["state"]
+    snames = leaf_names(scont)
+    sspread = _leaf_diffs(_Run(scfg, batch, seq, sdata).fit()["state"], scont)
+    _, ok_bad, _ = _resume_from_write_behind(
+        f"{tag} smoke, write-behind", scfg, sdata, TRAINER_DIR / "smoke-ok", None,
+        snames, scont, sspread)
+    _, torn_bad, _ = _resume_from_write_behind(
+        f"{tag} smoke, planted view snapshot", scfg, sdata, TRAINER_DIR / "smoke-torn",
+        _view_snapshot_manager(), snames, scont, sspread)
+    log(f"{tag} control, a write-behind snapshot of views: "
+        + (f"rejected on {len(torn_bad)} leaves" if torn_bad else "NOT rejected"))
+    if ok_bad:
+        raise AssertionError(f"{tag}: at the smoke size the resume from the write-behind "
+                             f"checkpoint differs on {ok_bad}")
+    if not torn_bad:
+        raise AssertionError(f"{tag}: the planted view snapshot is not rejected")
+    readings["control_caught"] = len(torn_bad)
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -1607,9 +2055,14 @@ def main() -> int:
         log(f"[train {arch}] " + json.dumps(dict(trained[-1], card=smi)))
         gc.collect()
         torch.cuda.empty_cache()
-    for row in rows:  # launches on the three served and the three trained paths together
-        row["launches"] = sum(r["launches"][row["name"]] for r in results + trained)
+    trainer = phase_trainer(torch, smi)
+    log("[trainer] " + json.dumps(dict(trainer, card=smi)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for row in rows:  # launches on the served, the trained and the trainer's paths together
+        row["launches"] = sum(r["launches"][row["name"]] for r in results + trained + [trainer])
         row["launches_train"] = sum(r["launches"][row["name"]] for r in trained)
+        row["launches_trainer"] = trainer["launches"][row["name"]]
         row["grad_parity"] = grads.get({"flash_attention_fwd": "attention", "mamba2_scan": "mamba2",
                                         "rwkv6_scan": "rwkv6"}.get(row["name"]))
     print(json.dumps({"kernels": rows}))
