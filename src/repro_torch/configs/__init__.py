@@ -38,7 +38,8 @@ ALIASES = {
     "rwkv6-7b": "rwkv6_7b",
 }
 
-PORTED = ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b")
+PORTED = ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b", "gemma_2b", "gemma_7b",
+          "command_r_35b", "qwen2_vl_7b")
 
 
 def resolve(arch: str) -> str:

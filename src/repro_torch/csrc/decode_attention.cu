@@ -49,6 +49,24 @@
 // tensor cores would round fp32 operands to tf32; it takes the same CTA
 // slices and the same cluster merge.
 //
+// Head dims 64, 128 and 256 (Gemma).  What D = 256 changes (G * D <= 2048
+// still, so G <= 8 and one M tile):
+// - Registers.  A warp's O accumulators over all of D are 256 / 8 n-tiles
+//   x 4 = 128 fp32 registers a lane; Q as A fragments would take another
+//   16 k-steps x 4 = 64 and leave too few under the 255 cap.  At D = 256
+//   Q is staged once per CTA in shared memory ([16][D] bf16, 8 KB, the
+//   rings' swizzle) and read with `ldmatrix` at each k-step, as K is.
+//   ptxas (CUDA 12.8, sm_90a) gives decode_bf16<256, 1> 212 registers and
+//   no spills.
+// - Ring stages.  Three stages stay: a warp's ring is 3 x {K, V} x 16 x
+//   256 x 2 B = 48 KB, four warps 192 KB, with Q and the partials about
+//   209 KB at G = 8, under the 227 KB a CTA may take.
+// - CTAs per SM.  One (two at D = 128, more at D = 64).  A CTA's four
+//   warps keep two chunks each in flight, 128 KB an SM, which is more than
+//   the memory's latency needs at 3.35 TB/s.
+// The fp32 kernel's D = 256 instance needs 146 KB of shared memory at
+// G = 8 (K and V tiles of 64 x 257 and 64 x 256 floats).
+//
 // Semantics beyond the TPU kernel: any cache length T is accepted (no
 // T % block_k rule), and length[b] == 0 returns zeros as the TPU kernel does.
 
@@ -186,8 +204,9 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 }
 
 // Shared memory of the bf16 kernel: the CTA's partial (m, l, o), then the
-// warps' (m, l) rows, then, 128-byte aligned, the warps' rings (each
-// STAGES x {K, V} x [16][D] bf16).  A warp's ring later holds its o rows.
+// warps' (m, l) rows, then, 128-byte aligned, Q's [16][D] tile when Q_SMEM
+// (D = 256), then the warps' rings (each STAGES x {K, V} x [16][D] bf16).
+// A warp's ring later holds its o rows.
 template <int D, int MT>
 struct Bf16Smem {
   static constexpr int ROWS = 16 * MT;
@@ -195,11 +214,14 @@ struct Bf16Smem {
   static constexpr uint32_t TILE = CHUNK * D * 2;
   static constexpr uint32_t STAGE = 2 * TILE;
   static constexpr uint32_t RING = STAGES * STAGE;
+  static constexpr bool Q_SMEM = D >= 256;  // Q from shared memory, not registers
+  static constexpr uint32_t QBYTES = Q_SMEM ? TILE : 0;
   static_assert(ROWS * OLD * 4 <= (int)RING, "a warp's o rows must fit its ring");
+  static_assert(!Q_SMEM || MT == 1, "Q in shared memory holds one M tile");
   static __host__ __device__ size_t head_bytes(int G) {
     return (size_t)(2 * G + G * D + 2 * WARPS * ROWS) * 4;
   }
-  static __host__ size_t bytes(int G) { return head_bytes(G) + 128 + WARPS * RING; }
+  static __host__ size_t bytes(int G) { return head_bytes(G) + 128 + QBYTES + WARPS * RING; }
 };
 
 template <int D, int MT>
@@ -215,7 +237,8 @@ decode_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   float* wm = part + 2 * G + G * D;                  // [WARPS][ROWS]
   float* wl = wm + WARPS * L::ROWS;                  // [WARPS][ROWS]
   const uint32_t base = smem_u32(smem_raw);
-  const uint32_t rings = (base + (uint32_t)L::head_bytes(G) + 127u) & ~127u;
+  const uint32_t qs = (base + (uint32_t)L::head_bytes(G) + 127u) & ~127u;  // Q_SMEM only
+  const uint32_t rings = qs + L::QBYTES;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -250,25 +273,47 @@ decode_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   }
 
   // Q as A fragments: rows are the group's heads (zeros past G), register j
-  // holds row g + 8 (j & 1), columns 16 kk + 2 t4 + 8 (j >> 1) and + 1
-  uint32_t qa[MT][D / 16][4];
+  // holds row g + 8 (j & 1), columns 16 kk + 2 t4 + 8 (j >> 1) and + 1.
+  // With Q_SMEM the CTA stores Q's [16][D] tile (zero rows past G) once,
+  // swizzled as the rings are, and each k-step reads its fragment with
+  // ldmatrix: matrix lane >> 3 is rows 8 (mi & 1) .. and d-chunk
+  // 2 kk + (mi >> 1), registers in the order above.
+  uint32_t qa[L::Q_SMEM ? 1 : MT][L::Q_SMEM ? 1 : D / 16][4];
   const __nv_bfloat16* qb = q + b * p.q_sb + (long long)kvh * G * p.q_sh;
+  if constexpr (L::Q_SMEM) {
+    for (int i = tid; i < 16 * CPR; i += WARPS * 32) {
+      const int r = i / CPR, c = i % CPR;
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (r < G) {
+        const __nv_bfloat16* src = qb + r * p.q_sh + c * 8;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = mt * 16 + g + 8 * (j & 1);
-        const int col = 16 * kk + 2 * t4 + 8 * (j >> 1);
-        uint32_t val = 0;
-        if (row < G) {
-          const __nv_bfloat16* src = qb + row * p.q_sh + col;
-          __nv_bfloat162 two = __halves2bfloat162(src[0], src[1]);
-          val = *reinterpret_cast<uint32_t*>(&two);
+        for (int e = 0; e < 4; ++e) {
+          __nv_bfloat162 two = __halves2bfloat162(src[2 * e], src[2 * e + 1]);
+          w[e] = *reinterpret_cast<uint32_t*>(&two);
         }
-        qa[mt][kk][j] = val;
       }
+      *reinterpret_cast<uint4*>(smem_raw + (qs - base) + swz<D>(r, c)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = mt * 16 + g + 8 * (j & 1);
+          const int col = 16 * kk + 2 * t4 + 8 * (j >> 1);
+          uint32_t val = 0;
+          if (row < G) {
+            const __nv_bfloat16* src = qb + row * p.q_sh + col;
+            __nv_bfloat162 two = __halves2bfloat162(src[0], src[1]);
+            val = *reinterpret_cast<uint32_t*>(&two);
+          }
+          qa[mt][kk][j] = val;
+        }
+  }
 
   const float sl2 = p.scale * LOG2E;  // scores in log2 units
   float m[MT][2], l[MT][2], oacc[MT][D / 8][4];
@@ -300,14 +345,22 @@ decode_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
     {
       const int mi = lane >> 3;
       const int kr = ((mi >> 1) << 3) + (lane & 7);
+      const int qr = ((mi & 1) << 3) + (lane & 7);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t bk[4];
         ldsm_x4(bk, sK + swz<D>(kr, 2 * kk + (mi & 1)));
+        if constexpr (L::Q_SMEM) {
+          uint32_t a[4];
+          ldsm_x4(a, qs + swz<D>(qr, 2 * kk + (mi >> 1)));
+          mma_bf16(s[0][0], a, bk[0], bk[1]);
+          mma_bf16(s[0][1], a, bk[2], bk[3]);
+        } else {
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][0], qa[mt][kk], bk[0], bk[1]);
-          mma_bf16(s[mt][1], qa[mt][kk], bk[2], bk[3]);
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][0], qa[mt][kk], bk[0], bk[1]);
+            mma_bf16(s[mt][1], qa[mt][kk], bk[2], bk[3]);
+          }
         }
       }
     }
@@ -597,7 +650,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* l
 
 // Returns cudaGetLastError() after the launch (0 on success).  The caller
 // has checked shapes, dtypes and strides (innermost stride 1, K/V row
-// strides multiples of 16 bytes), D in {64, 128}, G * D <= 2048, and
+// strides multiples of 16 bytes), D in {64, 128, 256}, G * D <= 2048, and
 // 1 <= splits <= 8.
 extern "C" int flash_decode(
     const void* q, const void* k, const void* v, const void* length, void* o, int is_bf16,
@@ -619,10 +672,12 @@ extern "C" int flash_decode(
   if (!is_bf16) {
     if (D == 64) return (int)launch_f32<64>(q, k, v, len, o, p, st);
     if (D == 128) return (int)launch_f32<128>(q, k, v, len, o, p, st);
+    if (D == 256) return (int)launch_f32<256>(q, k, v, len, o, p, st);
     return (int)cudaErrorInvalidValue;
   }
   if (D == 64 && p.group <= 16) return (int)launch_bf16<64, 1>(q, k, v, len, o, p, st);
   if (D == 64) return (int)launch_bf16<64, 2>(q, k, v, len, o, p, st);
   if (D == 128) return (int)launch_bf16<128, 1>(q, k, v, len, o, p, st);
+  if (D == 256) return (int)launch_bf16<256, 1>(q, k, v, len, o, p, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -23,7 +23,7 @@ from . import build, ref
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 _DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GROUP_ELEMS = 256 * 8  # (H // KV) * D outputs held in one CTA's registers
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p

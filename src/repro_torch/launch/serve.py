@@ -3,7 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         [--smoke] [--batch 4] [--prompt-len 32] [--gen 16] [--device cuda]
 
-``--arch`` takes the ported ids: tinyllama-1.1b, zamba2-1.2b, rwkv6-7b.  On
+``--arch`` takes the ported ids: tinyllama-1.1b, zamba2-1.2b, rwkv6-7b,
+gemma-2b, gemma-7b, command-r-35b, qwen2-vl-7b.  A ``visual_stub`` config
+(qwen2-vl-7b) gets seeded random patch embeddings (batch, 8, d_model) in
+place of a vision frontend, spliced over the first 8 prompt slots.  On
 the CPU the SSM archs follow the reference's chunked scans, which need the
 prompt to be a multiple of the chunk (128 for Mamba2, 64 for RWKV6) or
 shorter than it; the CUDA kernels take any prompt length.  Prints the warm
@@ -29,6 +32,9 @@ from repro_torch.launch.steps import make_generate_loop, make_prefill_step
 from repro_torch.models import build_model
 
 
+N_IMG = 8  # visual embeddings a prompt for visual_stub configs, as the reference's serve.py
+
+
 def resolve_device(name: str) -> torch.device:
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -43,7 +49,9 @@ def _sync(dev: torch.device) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="tinyllama-1.1b, zamba2-1.2b, rwkv6-7b, gemma-2b, gemma-7b, "
+                         "command-r-35b or qwen2-vl-7b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -58,6 +66,9 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                                      generator=gen, device=dev)}
+    if cfg.visual_stub:
+        batch["visual_embeds"] = torch.randn((args.batch, N_IMG, cfg.d_model), generator=gen,
+                                             device=dev)
 
     generate = make_generate_loop(model, args.gen)
     max_len = args.prompt_len + args.gen + 1
@@ -74,6 +85,9 @@ def main(argv=None) -> None:
     print(f"[serve] generated {tuple(toks.shape)} tokens; "
           f"first(incl build)={t_first:.2f}s warm={t_warm*1e3:.0f}ms "
           f"({tput:.0f} tok/s)")
+    if cfg.visual_stub:
+        print(f"[serve] visual embeddings {tuple(batch['visual_embeds'].shape)} over the "
+              f"first {N_IMG} prompt slots")
     print("[serve] sample:", toks[0, :12].tolist())
     print("[serve] kernel launches (warm run):", ops.launch_counts())
     prefill = make_prefill_step(model, max_len)

@@ -1,4 +1,5 @@
-"""GQA/MQA attention block with RoPE, twin of the reference's ``attn_*``.
+"""GQA/MQA attention block with RoPE or M-RoPE and optional qkv biases,
+twin of the reference's ``attn_*``.
 
 Activations are (B,S,H,hd); the kernels take (B,H,S,hd), which here is a
 transposed view, not a copy.  The KV cache is stored (B,T,KV,hd) as in the
@@ -19,7 +20,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from .common import apply_rope, dense_init
+from .common import apply_mrope, apply_rope, dense_init
 from .config import ModelConfig
 
 Tensors = Dict[str, torch.Tensor]
@@ -28,12 +29,18 @@ Tensors = Dict[str, torch.Tensor]
 def attn_init(cfg: ModelConfig, gen: torch.Generator) -> Tensors:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = cfg.param_tdtype()
-    return {
+    p = {
         "wq": dense_init(gen, D, (H, hd), dt),
         "wk": dense_init(gen, D, (KV, hd), dt),
         "wv": dense_init(gen, D, (KV, hd), dt),
         "wo": dense_init(gen, H * hd, (D,), dt).reshape(H, hd, D),
     }
+    if cfg.qkv_bias:
+        dev = gen.device
+        p["bq"] = torch.zeros((H, hd), dtype=dt, device=dev)
+        p["bk"] = torch.zeros((KV, hd), dtype=dt, device=dev)
+        p["bv"] = torch.zeros((KV, hd), dtype=dt, device=dev)
+    return p
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -44,8 +51,16 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _qkv(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
          positions: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """positions: (B, S), or (3, B, S) for M-RoPE."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if cfg.rope_type == "standard":  # "none": no position encoding
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if cfg.rope_type == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.rope_type == "standard":  # "none": no position encoding
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -90,7 +105,8 @@ def attn_decode(cfg: ModelConfig, p: Tensors, x: torch.Tensor, pos: torch.Tensor
                 cache: Tensors) -> Tuple[torch.Tensor, Tensors]:
     """x: (B,1,D); pos: (B,) int32 current position; in-cache attention."""
     B = x.shape[0]
-    q, k, v = _qkv(cfg, p, x, pos[:, None])
+    positions = pos[None, :, None].expand(3, B, 1) if cfg.rope_type == "mrope" else pos[:, None]
+    q, k, v = _qkv(cfg, p, x, positions)
     rows = torch.arange(B, device=x.device)
     idx = pos.long()
     cache["k"][rows, idx] = k[:, 0]

@@ -1,4 +1,4 @@
-"""Shared layers: init helpers, RMSNorm, RoPE, embeddings, LM head.
+"""Shared layers: init helpers, norms, RoPE / M-RoPE, embeddings, LM head.
 
 Plain functions on tensors, twins of the reference package's
 ``models/common.py``.  Initialisers draw from an explicit
@@ -10,7 +10,7 @@ Sharding constraints are not ported: the port runs on one device.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,30 +42,41 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 def norm_init(cfg: ModelConfig, device: torch.device,
               d: Optional[int] = None) -> Dict[str, torch.Tensor]:
     d = d if d is not None else cfg.d_model
-    return {"scale": torch.ones(d, dtype=cfg.param_tdtype(), device=device)}
+    dt = cfg.param_tdtype()
+    fill = torch.zeros if cfg.norm_unit_offset else torch.ones
+    p = {"scale": fill(d, dtype=dt, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(d, dtype=dt, device=device)
+    return p
 
 
 def apply_norm(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm in float32, cast back to x's dtype."""
+    """LayerNorm (with bias) or RMSNorm in float32, cast back to x's dtype.
+    With ``norm_unit_offset`` the stored scale is an offset from 1 (Gemma)."""
     xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).pow(2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
     y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + cfg.norm_eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    scale = p["scale"].float()
+    if cfg.norm_unit_offset:
+        scale = scale + 1.0
+    return (y * scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
-# RoPE (split-half, NeoX style, in float32)
+# RoPE and M-RoPE (split-half, NeoX style, in float32)
 # ---------------------------------------------------------------------------
 def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                          device=device) / dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (B, S, H, D) with D even; positions: (B, S) int."""
-    D = x.shape[-1]
-    freqs = rope_freqs(D, theta, x.device)
-    ang = positions[..., None].float() * freqs  # (B,S,D/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D) rotated by the (B, S, D/2) angles, split-half."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -73,13 +84,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, D) with D even; positions: (B, S) int."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  ``positions``: (3, B, S) temporal, height
+    and width ids (equal for text tokens); the rotary half-dim is split
+    into three sections, each rotated by its own position stream."""
+    D = x.shape[-1]
+    if sum(sections) != D // 2:
+        raise ValueError(f"mrope sections {sections} must sum to head_dim/2 = {D // 2}")
+    pos = positions.float()
+    # (B, S, D/2): the frequencies of section i read position stream i
+    ang = torch.cat([pos[i, ..., None].expand(*pos.shape[1:], n)
+                     for i, n in enumerate(sections)], dim=-1)
+    return _rotate(x, ang * rope_freqs(D, theta, x.device))
+
+
 def positions_for(cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """(B,S) position ids from the batch, default 0..S-1."""
+    """(B,S) position ids, or (3,B,S) for M-RoPE, from the batch; default
+    0..S-1 (on every stream)."""
     if "positions" in batch:
         return batch["positions"]
     tokens = batch["tokens"]
     B, S = tokens.shape
-    return torch.arange(S, device=tokens.device)[None].expand(B, S)
+    pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    return pos[None].expand(3, B, S) if cfg.rope_type == "mrope" else pos
 
 
 # ---------------------------------------------------------------------------
@@ -93,14 +127,43 @@ def embed_tokens(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
                  tokens: torch.Tensor) -> torch.Tensor:
     # index first, then cast: bit-identical to the reference's cast-then-index
     # without a full-table cast per step
-    return emb["tok"][tokens].to(cfg.compute_tdtype())
+    x = emb["tok"][tokens].to(cfg.compute_tdtype())
+    if cfg.scale_embed:
+        # the reference rounds sqrt(d_model) to x's dtype first (bf16:
+        # sqrt(3072) = 55.43 becomes 55.5); the product of that scalar and
+        # x, computed in fp32 and rounded once, is the reference's
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    return x
+
+
+def merge_visual(cfg: ModelConfig, x: torch.Tensor,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Qwen2-VL stub: precomputed patch embeddings (B, n_img, D) take the
+    first ``n_img`` token slots (the modality frontend is out of scope)."""
+    if not cfg.visual_stub or "visual_embeds" not in batch:
+        return x
+    ve = batch["visual_embeds"].to(x.dtype)
+    return torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+
+
+def _head_weight(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
+                 out_w: Optional[torch.Tensor]) -> torch.Tensor:
+    """The (V, D) head: the embedding table when tied."""
+    return emb["tok"] if cfg.tie_embeddings or out_w is None else out_w
+
+
+def _softcap(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
 
 
 def lm_head_logits(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
                    out_w: Optional[torch.Tensor], h: torch.Tensor) -> torch.Tensor:
-    """float32 logits over the padded vocab; padded rows masked to -1e30.
-    ``out_w`` is the untied head (tied embeddings are not ported yet)."""
-    logits = h.float() @ out_w.float().t()
+    """float32 logits over the padded vocab, softcapped when configured;
+    padded rows masked to -1e30.  ``out_w`` is the untied head, or None."""
+    logits = _softcap(cfg, h.float() @ _head_weight(cfg, emb, out_w).float().t())
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
@@ -109,7 +172,7 @@ def lm_head_logits(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
 def _xent_chunk(cfg: ModelConfig, hh: torch.Tensor, wf: torch.Tensor,
                 labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked next-token loss summed over one (B, C) chunk."""
-    logits = hh.float() @ wf.t()  # (B,C,V) float32
+    logits = _softcap(cfg, hh.float() @ wf.t())  # (B,C,V) float32
     if cfg.padded_vocab != cfg.vocab_size:
         pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
         logits = torch.where(pad_mask, logits, -1e30)
@@ -133,7 +196,7 @@ def chunked_softmax_xent(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
     C = min(cfg.loss_chunk, S)
     if S % C:
         raise ValueError("seq len must divide loss_chunk")
-    wf = out_w.float()  # the untied head (tied embeddings are not ported yet)
+    wf = _head_weight(cfg, emb, out_w).float()
     mask = (torch.ones((B, S), dtype=torch.float32, device=h.device) if mask is None
             else mask.to(torch.float32))
     total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -146,4 +209,6 @@ def chunked_softmax_xent(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
 def act_fn(name: str):
     if name in ("silu", "swiglu"):
         return F.silu
-    raise NotImplementedError(f"activation {name!r} is not ported yet")
+    if name in ("gelu", "geglu"):  # gelu_mlp (Whisper's plain MLP) is not ported yet
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(name)

@@ -1,8 +1,10 @@
 """Decoder-only LM over a per-layer block pattern (PyTorch port).
 
 Twin of the reference's ``models/lm.py`` for the blocks ported so far:
-``attn`` blocks with a dense ``mlp`` FFN (TinyLlama), ``mamba2`` blocks with
-a ``shared_attn`` block (Zamba2), and ``rwkv6`` blocks.  Layers are grouped
+``attn`` blocks with a dense ``mlp`` FFN (TinyLlama, Gemma, Command-R,
+Qwen2-VL: sequential or parallel attention and MLP, tied or untied head,
+visual embeddings spliced over the first token slots), ``mamba2`` blocks
+with a ``shared_attn`` block (Zamba2), and ``rwkv6`` blocks.  Layers are grouped
 into runs of identical (block kind, ffn kind); each ``shared_attn`` stands
 alone.  Each run's parameters are stacked with a leading layer axis, and a
 ``shared_attn`` group holds ``{}`` in ``layers`` while the one shared block
@@ -33,7 +35,7 @@ runs each layer under ``torch.utils.checkpoint`` (the reference's
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -43,7 +45,8 @@ from . import ssm
 from torch.utils.checkpoint import checkpoint
 
 from .common import (apply_norm, chunked_softmax_xent, dense_init, embed_tokens,
-                     embedding_init, lm_head_logits, norm_init, positions_for)
+                     embedding_init, lm_head_logits, merge_visual, norm_init,
+                     positions_for)
 from .config import ModelConfig, check_supported
 
 Tree = Dict[str, Any]
@@ -128,8 +131,11 @@ def _walk(cfg: ModelConfig, params: Tree) -> Iterator[Tuple[int, int, str, Tree]
 def _block_init(cfg: ModelConfig, kind: str, gen: torch.Generator) -> Tree:
     dev = gen.device
     if kind == "attn":
-        return {"ln1": norm_init(cfg, dev), "attn": attn.attn_init(cfg, gen),
-                "ffn": mlpm.mlp_init(cfg, gen), "ln2": norm_init(cfg, dev)}
+        p = {"ln1": norm_init(cfg, dev), "attn": attn.attn_init(cfg, gen),
+             "ffn": mlpm.mlp_init(cfg, gen)}
+        if not cfg.parallel_block:
+            p["ln2"] = norm_init(cfg, dev)
+        return p
     if kind == "mamba2":
         return {"ln1": norm_init(cfg, dev), "mixer": ssm.mamba2_init(cfg, gen)}
     if kind == "rwkv6":
@@ -150,8 +156,9 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
     }
     if "shared_attn" in cfg.blocks:
         params["shared_block"] = _block_init(cfg, "attn", gen)
-    params["lm_head"] = dense_init(gen, cfg.d_model, (cfg.padded_vocab,),
-                                   cfg.param_tdtype()).t().contiguous()
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, (cfg.padded_vocab,),
+                                       cfg.param_tdtype()).t().contiguous()
     if cfg.rwkv is not None:
         params["ln0"] = norm_init(cfg, gen.device)
     return params
@@ -161,13 +168,22 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
 # forward
 # ---------------------------------------------------------------------------
 def _attn_layer(cfg: ModelConfig, lp: Tree, x: torch.Tensor, mix) -> torch.Tensor:
-    """Pre-norm residual block: x + mix(norm(x)), then x + mlp(norm(x))."""
-    x = x + mix(apply_norm(cfg, lp["ln1"], x))
+    """Pre-norm residual block: x + mix(norm(x)), then x + mlp(norm(x));
+    with ``parallel_block`` both read the one norm: x + mix(h) + mlp(h)."""
+    h = apply_norm(cfg, lp["ln1"], x)
+    if cfg.parallel_block:
+        return x + mix(h) + mlpm.mlp_apply(cfg, lp["ffn"], h)
+    x = x + mix(h)
     return x + mlpm.mlp_apply(cfg, lp["ffn"], apply_norm(cfg, lp["ln2"], x))
 
 
-def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
+           batch: Optional[Dict] = None) -> torch.Tensor:
+    """Token embeddings; with a ``batch`` (the prompt, not a decode step)
+    its visual embeddings take the first token slots."""
     x = embed_tokens(cfg, params["embed"], tokens)
+    if batch is not None:
+        x = merge_visual(cfg, x, batch)
     if cfg.rwkv is not None:
         x = apply_norm(cfg, params["ln0"], x)
     return x
@@ -193,7 +209,7 @@ def _apply_layer(cfg: ModelConfig, kind: str, lp: Tree, x: torch.Tensor,
 def backbone(cfg: ModelConfig, params: Tree, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens -> final hidden states (B,S,D) and the total aux loss (zero:
     no ported block has one)."""
-    x = _embed(cfg, params, batch["tokens"])
+    x = _embed(cfg, params, batch["tokens"], batch)
     positions = positions_for(cfg, batch)
     for _, _, kind, lp in _walk(cfg, params):
         if cfg.remat and torch.is_grad_enabled():
@@ -295,7 +311,7 @@ def prefill(cfg: ModelConfig, params: Tree, batch: Dict,
     """Process a prompt of S tokens; return last-position logits and the
     primed cache (max_len slots)."""
     tokens = batch["tokens"]
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, batch)
     positions = positions_for(cfg, batch)
     cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
     for gi, i, kind, lp in _walk(cfg, params):

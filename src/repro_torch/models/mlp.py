@@ -1,6 +1,8 @@
-"""Dense gated MLP (SwiGLU), twin of the reference's ``mlp_init``/``mlp_apply``.
+"""Dense gated MLP (SwiGLU or GeGLU), twin of the reference's
+``mlp_init``/``mlp_apply``.
 
-Mixture-of-experts is not ported yet (``config.check_supported`` refuses it).
+Mixture-of-experts and the plain two-layer GELU MLP are not ported yet
+(``config.check_supported`` refuses them).
 """
 
 from __future__ import annotations

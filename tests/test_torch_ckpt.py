@@ -4,7 +4,8 @@ JAX package's.
 * the files: a tree saved by either package gives the same manifest (but
   the wall time) and the same shard bytes, full and delta;
 * restores across the packages: bf16 leaves bit for bit, both ways, and
-  delta chains whose members alternate between the packages;
+  delta chains whose members alternate between the packages; a tied-head
+  (gemma-2b smoke) train state both ways;
 * the write-behind snapshot is a copy: the state is written into in place,
   as the port's AdamW does, before the background writer reads a byte;
 * the port saves and restores bf16 without ``ml_dtypes``;
@@ -180,6 +181,50 @@ def test_delta_chain_alternates_between_packages(tmp_path, first):
         ttree, _ = tm.restore_tree(step, _torch(_np_state(0)))
         _assert_same_bits(jtree, trees[step])
         _assert_same_bits(ttree, trees[step])
+    jm.fa.shutdown()
+    tm.fa.shutdown()
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_tied_train_state_restores_across_packages(tmp_path, writer):
+    """A gemma-2b smoke train state in bf16 (tied head: no ``lm_head``
+    leaf; unit-offset norms), saved by one package and restored by the
+    other, bit for bit, its leaf names the same on both sides."""
+    from dataclasses import replace
+
+    from repro.configs import get_config as jget_config
+    from repro.models import build_model as jbuild_model
+    from repro.optim.adamw import AdamWConfig as JAdamWConfig
+    from repro.optim.adamw import adamw_init as jadamw_init
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_state
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jparams = jbuild_model(replace(jget_config("gemma-2b", smoke=True), **bf16)).init(
+        jax.random.PRNGKey(1))
+    jstate = {"params": jparams, "opt": jadamw_init(JAdamWConfig(), jparams)}
+    tstate = make_train_state(build_model(replace(get_config("gemma-2b", smoke=True), **bf16)),
+                              AdamWConfig(), torch.Generator().manual_seed(2))
+    names = bridge.leaf_names(tstate)
+    assert names == [jax.tree_util.keystr(p)
+                     for p, _ in jax.tree_util.tree_leaves_with_path(jstate)]
+    assert "['params']['lm_head']" not in names and "['params']['embed']['tok']" in names
+    jm = JManager(JOS(), str(tmp_path), **MGR)
+    tm = CheckpointManager(OSDevice(), str(tmp_path), **MGR)
+    if writer == "jax":
+        jm.save(3, jstate)
+        want = jax.tree.map(np.asarray, jstate)
+        step, got, _ = tm.restore_latest(like=tstate)
+        assert got["params"]["embed"]["tok"].dtype == torch.bfloat16
+    else:
+        tm.save(3, tstate)
+        want = bridge.params_to_numpy(tstate)
+        step, got, _ = jm.restore_latest(like=jstate)
+        assert got["params"]["embed"]["tok"].dtype == jnp.bfloat16
+    assert step == 3
+    _assert_same_bits(got, want)
     jm.fa.shutdown()
     tm.fa.shutdown()
 

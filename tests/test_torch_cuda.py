@@ -145,6 +145,37 @@ def test_cuda_flash_decode_split_edges_on_the_card():
 
 
 @pytest.mark.cuda
+def test_cuda_flash_decode_head_dim_256_edges_on_the_card():
+    """The decode kernel at head_dim 256 (Gemma; Q staged in shared memory):
+    gemma-7b's MHA and gemma-2b's MQA serve shapes (G = 1 and 8, the
+    latter at the G * D <= 2048 limit) and a small ragged cache, lengths 0,
+    1, 2, T and one below, at and one above E = TILE * C; bf16 and fp32
+    against the plain version, bf16 also against a dense fp32 reference on
+    the same values; each call is one counted launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        for B, H, KV, T in ((8, 16, 16, 1065), (8, 8, 1, 1065), (3, 8, 1, 77)):
+            E = dec.TILE * dec.split_count(B, KV, T)
+            lengths = ([0, 1, 2, E - 1, E, E + 1, 100, T] if B == 8 else [T, 1, min(E + 1, T)])
+            q = torch.randn(B, H, 256, generator=g, device="cuda").to(dtype)
+            k = torch.randn(B, T, KV, 256, generator=g, device="cuda").to(dtype).transpose(1, 2)
+            v = torch.randn(B, T, KV, 256, generator=g, device="cuda").to(dtype).transpose(1, 2)
+            length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            before = dec.launches
+            got = dec.flash_decode(q, k, v, length)
+            assert dec.launches == before + 1
+            torch.testing.assert_close(got, dec.decode_plain(q, k, v, length),
+                                       atol=tol, rtol=tol)
+            if dtype == torch.bfloat16:
+                want = dec.decode_plain(q.float(), k.float(), v.float(), length)
+                torch.testing.assert_close(got.float(), want, atol=5e-3, rtol=1e-2)
+            if lengths[0] == 0:
+                assert got[0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
 def test_cuda_rwkv6_scan_edges_on_the_card():
     """The RWKV6 kernels at the edges of the bf16 kernel's chunk and
     sub-blocks (S = 1, SUB - 1, SUB + 1, CHUNK + 1), at K = V = 16, 32 and

@@ -94,17 +94,17 @@ def _lengths(C):
 _JAX = {}
 
 
-def _case(G, C):
+def _case(G, C, Dh=D):
     """Inputs (the same values in numpy, fp32) and the JAX kernel's output,
-    computed once per (G, lengths)."""
+    computed once per (G, lengths, head_dim)."""
     lengths = _lengths(C)
-    key = (G, tuple(lengths))
+    key = (G, tuple(lengths), Dh)
     if key not in _JAX:
         rng = np.random.default_rng(G)
         B = len(lengths)
-        q = rng.normal(size=(B, KV * G, D)).astype(np.float32)
-        k = rng.normal(size=(B, KV, T_RAGGED, D)).astype(np.float32)
-        v = rng.normal(size=(B, KV, T_RAGGED, D)).astype(np.float32)
+        q = rng.normal(size=(B, KV * G, Dh)).astype(np.float32)
+        k = rng.normal(size=(B, KV, T_RAGGED, Dh)).astype(np.float32)
+        v = rng.normal(size=(B, KV, T_RAGGED, Dh)).astype(np.float32)
         ln = np.array(lengths, np.int32)
         want = j_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(ln),
                               block_k=200, interpret=True)
@@ -115,7 +115,19 @@ def _case(G, C):
 @pytest.mark.parametrize("G", [1, 8])
 @pytest.mark.parametrize("C", [1, 2, 3, 8])
 def test_split_merge_matches_jax_kernel_and_oracle(C, G):
-    q, k, v, ln, want = _case(G, C)
+    _check_split_merge(C, G, D)
+
+
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("C", [1, 2, 8])
+def test_split_merge_matches_jax_kernel_at_head_dim_256(C, G):
+    """Gemma's head_dim: G = 1 is gemma-7b's MHA, G = 8 gemma-2b's MQA
+    group, at the G * D <= 2048 limit."""
+    _check_split_merge(C, G, 256)
+
+
+def _check_split_merge(C, G, Dh):
+    q, k, v, ln, want = _case(G, C, Dh)
     got = split_decode(*(torch.from_numpy(x) for x in (q, k, v, ln)), C)
     assert torch.isfinite(got).all()  # empty warps and CTAs make no NaN
     assert torch.count_nonzero(got[0]) == 0  # length 0 gives zeros, as the JAX kernel
@@ -152,3 +164,18 @@ def test_split_count_at_the_serve_shapes():
     assert dec.split_count(8, 32, 1089) == 1
     assert dec.split_count(8, 4, 64) == 1
     assert dec.split_count(68, 4, 1065) == 1
+
+
+def test_wrapper_takes_head_dim_256_up_to_the_group_limit():
+    """The CUDA path's checks (run here on CPU tensors): head_dim 64, 128
+    and 256 pass while (H // KV) * D <= 2048; gemma-2b's G = 8 at D = 256
+    sits at the limit, G = 16 at D = 256 and any other head_dim raise."""
+    length = torch.ones(1, dtype=torch.int32)
+    for H, nkv, Dh in ((8, 1, 256), (16, 16, 256), (16, 1, 128), (32, 1, 64)):
+        q, k = torch.zeros(1, H, Dh), torch.zeros(1, nkv, 16, Dh)
+        dec._check_cuda(q, k, k, length)
+    for H, nkv, Dh, msg in ((16, 1, 256, "must be <= 2048"), (4, 1, 512, "head_dim in"),
+                            (4, 1, 96, "head_dim in")):
+        q, k = torch.zeros(1, H, Dh), torch.zeros(1, nkv, 16, Dh)
+        with pytest.raises(ValueError, match=msg):
+            dec._check_cuda(q, k, k, length)

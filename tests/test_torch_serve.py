@@ -32,7 +32,7 @@ from repro_torch.launch import serve
 from repro_torch.launch.steps import make_decode_step, make_generate_loop, make_prefill_step
 from repro_torch.models import build_model
 from repro_torch.models.common import lm_head_logits
-from repro_torch.models.config import MLAConfig, MoEConfig
+from repro_torch.models.config import EncDecConfig, MLAConfig, MoEConfig
 
 TOL = 1e-4
 B, S, GEN = 2, 32, 6
@@ -180,26 +180,68 @@ def test_serve_without_gpu_raises(monkeypatch):
         serve.main(["--smoke"])
 
 
-@pytest.mark.parametrize("change", [
+# Config branches on the tinyllama smoke config: the first ten are ported
+# and held against JAX (leaf names, full logits, prefill and two decode
+# steps); the rest are refused by name.
+BRANCHES = [
     dict(norm="layernorm"), dict(norm_unit_offset=True), dict(scale_embed=True),
     dict(logit_softcap=30.0), dict(qkv_bias=True), dict(tie_embeddings=True),
-    dict(parallel_block=True), dict(rope_type="mrope"), dict(visual_stub=True),
-    dict(block_pattern=("attn", "mla")), dict(mlp_act="gelu"),
-    dict(mla=MLAConfig()), dict(moe=MoEConfig(num_experts=4, top_k=2, d_expert=64)),
-])
-def test_unported_branches_raise(change):
+    dict(parallel_block=True), dict(rope_type="mrope", mrope_sections=(2, 3, 3)),
+    dict(visual_stub=True), dict(mlp_act="gelu"),
+    dict(block_pattern=("attn", "mla")), dict(mla=MLAConfig()),
+    dict(moe=MoEConfig(num_experts=4, top_k=2, d_expert=64)), dict(enc_dec=EncDecConfig()),
+    dict(mlp_act="gelu_mlp"), dict(remat_policy="dots"),
+]
+N_PORTED_BRANCHES = 10
+
+
+@pytest.mark.parametrize("change", BRANCHES)
+def test_config_branch_matches_jax_or_raises(change):
     cfg = replace(get_config("tinyllama-1.1b", smoke=True), **change)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg)
+    if BRANCHES.index(change) >= N_PORTED_BRANCHES:
+        with pytest.raises(NotImplementedError):
+            build_model(cfg)
+        return
+    jcfg = replace(jget_config("tinyllama-1.1b", smoke=True), **change)
+    jparams = jbuild_model(jcfg).init(jax.random.PRNGKey(0))
+    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    assert bridge.leaf_names(build_model(cfg).init(torch.Generator().manual_seed(0))) == \
+        [jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_leaves_with_path(jparams)]
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.visual_stub:
+        batch["visual_embeds"] = rng.normal(size=(B, 8, cfg.d_model)).astype(np.float32)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v).long() if k == "tokens" else torch.from_numpy(v)
+          for k, v in batch.items()}
+    jmodel, model = jbuild_model(jcfg), build_model(cfg)
+    with torch.inference_mode():
+        close(model.logits(params, tb), jmodel.logits(jparams, jb))
+    jlogits, jcache = jax.jit(jmodel.prefill, static_argnums=2)(jparams, jb, MAX_LEN)
+    logits, cache = make_prefill_step(model, MAX_LEN)(params, tb)
+    close(logits, jlogits)
+    jstep, step = jax.jit(jmodel.decode_step), make_decode_step(model)
+    for t in range(2):
+        tok = np.array(jnp.argmax(jlogits[:, :cfg.vocab_size], -1))
+        jlogits, jcache = jstep(jparams, jcache, jnp.asarray(tok), jnp.full((B,), S + t, jnp.int32))
+        logits, cache = step(params, cache, torch.from_numpy(tok).long(),
+                             torch.full((B,), S + t, dtype=torch.int32))
+        close(logits, jlogits)
 
 
 def test_unported_archs_raise():
-    assert PORTED == ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b")
+    assert PORTED == ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b", "gemma_2b", "gemma_7b",
+                      "command_r_35b", "qwen2_vl_7b")
     unported = [arch for arch in ARCH_IDS if arch not in PORTED]
-    assert len(unported) == 7
+    assert unported == ["deepseek_v2_236b", "granite_moe_3b_a800m", "whisper_tiny"]
     for arch in unported:
         with pytest.raises(NotImplementedError):
             get_config(arch)
     assert get_config("tinyllama-1.1b").d_model == 2048
     assert get_config("zamba2-1.2b").d_model == 2048
     assert get_config("rwkv6-7b").d_model == 4096
+    for arch, d, hd in (("gemma-2b", 2048, 256), ("gemma-7b", 3072, 256),
+                        ("command-r-35b", 8192, 128), ("qwen2-vl-7b", 3584, 128)):
+        cfg = get_config(arch)
+        assert (cfg.d_model, cfg.hd) == (d, hd)
+        build_model(cfg)  # check_supported passes the full config
