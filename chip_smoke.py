@@ -12,7 +12,8 @@ Phases, each of which raises on failure (nothing is caught):
 3. kernels — the attention kernels against their plain torch versions on
              the card, at the serve shape of every main path that attends
              (taken from its config: TinyLlama's GQA, Zamba2's MHA, and
-             gemma-7b's, gemma-2b's, qwen2-vl-7b's and command-r-35b's),
+             gemma-7b's, gemma-2b's, qwen2-vl-7b's, command-r-35b's and
+             granite-moe-3b-a800m's),
              ragged ones, the edges of the flash kernel's tiles (S = T =
              128 and 129, S = 1 against T = 1065, S = 127 against T = 300,
              KV = H at D = 128) and of the decode kernel's split of the
@@ -42,32 +43,43 @@ Phases, each of which raises on failure (nothing is caught):
              reject; readings of each bf16 state with its decayed operand
              (Mamba2's B~, RWKV6's k~) rounded to one bf16 part; CTAs an SM
              of both bf16 kernels; timings of kernel and plain version.
-5. main    — seven paths, each full width in bf16 with random weights from
+5. main    — eight paths, each full width in bf16 with random weights from
              a seed, serving batch 8 and 64 greedy tokens through
              ``make_generate_loop``: tinyllama-1.1b (prompt 1000),
              zamba2-1.2b and rwkv6-7b (prompt 1024, a multiple of the
-             reference's scan chunks), gemma-7b, gemma-2b, qwen2-vl-7b (8
-             seeded visual embeddings) and command-r-35b (prompt 1000;
-             36 of its 40 layers, the depth in ``PATHS``, printed).  Each
-             checks its parameter leaves, launch counts, token range, its
-             peak memory (within 90% of the card), and the kernel path's
-             logits (prefill and every decode step) and final cache
-             against the plain path's, teacher forced; then the same check
-             on paths with planted faults, which it must reject; and
-             profiles one prefill and a window of decode steps.
+             reference's scan chunks; rwkv6 at 16 of its 32 layers),
+             gemma-7b, gemma-2b, qwen2-vl-7b (8
+             seeded visual embeddings), command-r-35b (prompt 1000;
+             36 of its 40 layers, the depth in ``PATHS``, printed) and
+             granite-moe-3b-a800m (prompt 1000; 40 experts top-8 on the
+             capacity path).  Each checks its parameter leaves, launch
+             counts, token range, its peak memory (within 90% of the
+             card), and the kernel path's logits (prefill and every decode
+             step) and final cache against the plain path's, teacher
+             forced (on the MoE path also the shares of (layer, token)
+             pairs whose top-k experts and kept assignments differ, and of
+             the assignments dropped); then the same check on paths with
+             planted faults, which it must reject; and profiles one
+             prefill and a window of decode steps (on the MoE path split
+             into expert products, dispatch/combine and attention).
 6. grads   — the three autograd Functions of ``kernels/ops.py`` (kernel
              forward, plain backward) against plain autograd in fp32 at
              small shapes, at the reference's custom-VJP limits, and a
              backward that drops one input's gradient, which must fail.
-7. train   — four paths in bf16 with random weights from a seed, through
+7. train   — five paths in bf16 with random weights from a seed, through
              ``make_train_state``/``make_train_step``: tinyllama-1.1b and
              zamba2-1.2b full (batch 8, seq 1024), rwkv6-7b at full width
              with 4 of its 32 layers (batch 8), gemma-2b full (tied head;
-             batch 6, the largest that fits).  Each takes 4 steps on one
+             batch 6, the largest that fits), granite-moe-3b-a800m at full
+             width with 16 of its 32 layers under the ``dots`` remat policy
+             (batch 8).  Each takes 4 steps on one
              repeated batch (step ms, tok/s, peak memory within 85% of the
-             card; the loss must be finite and fall; launches a step
+             card; the loss must be finite and fall, the MoE path prints
+             its aux loss beside the xent; launches a step
              against the count the config gives), profiles one step (the device time of each plain
-             backward), then takes one step from that state on the kernel
+             backward), holds a ``dots`` step's loss and grads against
+             remat off (bit for bit, or within twice the spread of two
+             ``dots`` runs), then takes one step from that state on the kernel
              path, the plain path, the plain path in the kernels'
              arithmetic (the noise floor) and the kernel path with a
              planted backward fault: loss, grad norm and the new master
@@ -131,11 +143,16 @@ TIGHT_ATOL, TIGHT_RTOL = 5e-3, 1e-2
 # its bf16 weights (1.409 GB a layer), five copies of its KV cache (the
 # served run's and the teacher-forced check's), the 8.4 GB fp32 copy of the
 # tied head and prefill's activations it peaked at 71.74 GB of the card's
-# 85.02 GB (NVIDIA H100 80GB HBM3, 700.00 W).  Every path's peak must stay
-# within SERVE_MEM_SHARE of the card.
-PATHS = (("tinyllama-1.1b", 1000, None), ("zamba2-1.2b", 1024, None), ("rwkv6-7b", 1024, None),
+# 85.02 GB (NVIDIA H100 80GB HBM3, 700.00 W).  granite-moe-3b-a800m (6.75
+# GB of bf16 weights) serves at full depth.  rwkv6-7b keeps 16 of its 32
+# layers (full width) for time: with granite's paths the whole script took
+# 945.6 s of the 1200 s it may take (NVIDIA H100 80GB HBM3, 700.00 W), and
+# rwkv6's served path, host-bound at 3,769 device ops a decode step, was
+# the longest of them (73.7 s).  Every path's
+# peak must stay within SERVE_MEM_SHARE of the card.
+PATHS = (("tinyllama-1.1b", 1000, None), ("zamba2-1.2b", 1024, None), ("rwkv6-7b", 1024, 16),
          ("gemma-7b", 1000, None), ("gemma-2b", 1000, None), ("qwen2-vl-7b", 1000, None),
-         ("command-r-35b", 1000, 36))
+         ("command-r-35b", 1000, 36), ("granite-moe-3b-a800m", 1000, None))
 SERVE_MEM_SHARE = 0.9
 BATCH, GEN = 8, 64
 PROMPT = PATHS[0][1]  # the attention kernels' main serve shapes are TinyLlama's
@@ -1076,11 +1093,15 @@ def _expected_leaves(cfg):
             (("layers", 0, "tm", "w0"), (L, D), "float32"),
             (("layers", 0, "tm", "cm_k"), (L, D, cfg.d_ff), "bfloat16"),
             (("ln0", "scale"), (D,), "bfloat16")]
-    dense = [
+    m = cfg.moe  # MoE: the router fp32 beside the bf16 experts
+    ffn = [(("layers", 0, "ffn", "wi"), (L, D, cfg.d_ff), "bfloat16")] if m is None else [
+        (("layers", 0, "ffn", "router"), (L, D, m.num_experts), "float32"),
+        (("layers", 0, "ffn", "wi"), (L, m.num_experts, D, m.d_expert), "bfloat16"),
+        (("layers", 0, "ffn", "wo"), (L, m.num_experts, m.d_expert, D), "bfloat16")]
+    dense = ffn + [
         (("layers", 0, "attn", "wq"), (L, D, H, hd), "bfloat16"),
         (("layers", 0, "attn", "wk"), (L, D, KV, hd), "bfloat16"),
         (("layers", 0, "attn", "wo"), (L, H, hd, D), "bfloat16"),
-        (("layers", 0, "ffn", "wi"), (L, D, cfg.d_ff), "bfloat16"),
         (("layers", 0, "ln1", "scale"), (L, D), "bfloat16"),
         (("layers", 0, "ln1", "bias"), (L, D) if cfg.norm == "layernorm" else None, "bfloat16"),
         (("layers", 0, "ln2", "scale"), None if cfg.parallel_block else (L, D), "bfloat16")]
@@ -1181,7 +1202,7 @@ def phase_main(torch, smi, arch, prompt, layers):
         f"(generate {t_gen * 1e3:.1f} ms for {BATCH}x{GEN} tokens, prompt {prompt}) on {smi}")
 
     # where the time goes: a profiled prefill and a profiled window of decode steps
-    (lk, ck), pf_prof = _profile(torch, f"{arch} prefill", lambda: prefill(params, batch))
+    (lk, ck), pf_prof = _profile(torch, f"{arch} prefill", lambda: prefill(params, batch), cfg)
     kdec = make_decode_step(model)
     tok = lk[:, :cfg.vocab_size].argmax(-1)
 
@@ -1190,7 +1211,7 @@ def phase_main(torch, smi, arch, prompt, layers):
             pos = torch.full((BATCH,), prompt + t, dtype=torch.int32, device="cuda")
             kdec(params, ck, tok, pos)
 
-    _, dec_prof = _profile(torch, f"{arch} decode x8", decode_window)
+    _, dec_prof = _profile(torch, f"{arch} decode x8", decode_window, cfg)
     del ck
 
     # teacher-forced parity: kernel path vs plain path, both fed the served
@@ -1198,9 +1219,12 @@ def phase_main(torch, smi, arch, prompt, layers):
     V = cfg.vocab_size
     inputs = torch.cat([tok[:, None], toks[:, :-1]], dim=1)
     plain = build_model(replace(cfg, attn_impl="ref", scan_impl="ref"))
-    want = _teacher_forced(torch, make_prefill_step(plain, max_len), make_decode_step(plain),
-                           params, batch, inputs, prompt)
-    got = _teacher_forced(torch, prefill, kdec, params, batch, inputs, prompt)
+    routes = {"plain": [], "kernel": [], "floor": []}  # MoE: each run's routing, layer by layer
+    with _routing(cfg, routes["plain"]):
+        want = _teacher_forced(torch, make_prefill_step(plain, max_len), make_decode_step(plain),
+                               params, batch, inputs, prompt)
+    with _routing(cfg, routes["kernel"]):
+        got = _teacher_forced(torch, prefill, kdec, params, batch, inputs, prompt)
     for t in range(GEN):
         if not torch.equal(got[0][t + 1][:, :V].argmax(-1), toks[:, t]):
             raise AssertionError(f"{arch} step {t}: the served tokens are not the kernel "
@@ -1217,17 +1241,19 @@ def phase_main(torch, smi, arch, prompt, layers):
         # logits alone do not resolve every state fault (a zeroed prefill
         # state moves zamba2's logits by less than the floor allows); the
         # primed cache, compared leaf by leaf, does.
-        sound = {"relative": _rel_by_kind(got, want),
+        sound = {"relative": _rel_by_kind(got, want, V),
                  "fixed_limit": _parity(f"{arch} kernel path (read only; held to the floor "
                                         f"below)", got, want)}
         del got
-        with _planted(ops, **_floor_serve(cfg)):
+        with _planted(ops, **_floor_serve(cfg)), _routing(cfg, routes["floor"]):
             floor = _rel_by_kind(_teacher_forced(torch, make_prefill_step(plain, max_len),
                                                  make_decode_step(plain), params, batch,
-                                                 inputs, prompt), want)
+                                                 inputs, prompt), want, V)
         what = "scan" if cfg.mamba is not None or cfg.rwkv is not None else "attention"
         log(f"{tag} noise floor (plain path, {what} in the kernels' arithmetic, vs plain "
             f"path): relative rms error by leaf {_fmt(floor)}")
+        if cfg.moe is not None:
+            sound["routing"] = _routing_report(tag, cfg, routes)
         sound["relative_limit"] = {k: 2 * v + 1e-3 for k, v in floor.items()}
         sound["ratio_to_floor"] = max(v / floor[k] for k, v in sound["relative"].items())
         bad = _beyond_floor(sound["relative"], floor)
@@ -1250,7 +1276,7 @@ def phase_main(torch, smi, arch, prompt, layers):
         with _planted(ops, **patch):
             out = _teacher_forced(torch, prefill, kdec, params, batch, inputs, prompt)
         if floor is not None:
-            reading = {"relative": _rel_by_kind(out, want)}
+            reading = {"relative": _rel_by_kind(out, want, V)}
             caught = bool(_beyond_floor(reading["relative"], floor))
             log(f"{tag} control, {fault}: relative rms error by leaf "
                 f"{_fmt(reading['relative'])}; {'rejected' if caught else 'NOT rejected'}")
@@ -1275,6 +1301,67 @@ def phase_main(torch, smi, arch, prompt, layers):
             "tok_per_s": BATCH * GEN / t_gen, "launches": counts, "parity": sound,
             "greedy_agree": agree, "noise_floor": floor, "controls": controls,
             "profile": {"prefill": pf_prof, "decode_x8": dec_prof}}
+
+
+@contextlib.contextmanager
+def _routing(cfg, record):
+    """On a MoE path, append each capacity dispatch's top-k experts and kept
+    mask, (G, T, K) each, to ``record``: one entry a layer a step."""
+    if cfg.moe is None:
+        yield
+        return
+    from repro_torch.models import mlp
+
+    slots = mlp._slots
+
+    def recording(gate_i, E, C):
+        pos, keep = slots(gate_i, E, C)
+        record.append((gate_i, keep))
+        return pos, keep
+
+    with _planted(mlp, _slots=recording):
+        yield
+
+
+def _routing_report(tag, cfg, routes):
+    """Shares of (layer, token) pairs whose top-k expert set, and whose kept
+    mask (in top-k order), differ from the plain path's: the kernel path's
+    and the noise floor's, over the prefill and the decode steps; and the
+    share of assignments each run dropped."""
+    L = sum(b == "attn" for b in cfg.blocks) - cfg.moe.first_dense_layers
+    parts = {"prefill": slice(0, L), "decode": slice(L, None)}  # one routing a layer a step
+
+    def differ(run, part):
+        n = sets = kept = 0
+        for (gi, keep), (gi_w, keep_w) in zip(run[parts[part]], routes["plain"][parts[part]]):
+            K = gi.shape[-1]
+            sets += (gi.reshape(-1, K).sort(-1).values
+                     != gi_w.reshape(-1, K).sort(-1).values).any(-1).sum()
+            kept += (keep.reshape(-1, K) != keep_w.reshape(-1, K)).any(-1).sum()
+            n += gi.numel() // K
+        return {"pairs": n, "topk_differ": (sets / n).item(), "kept_differ": (kept / n).item()}
+
+    def dropped(run, part):
+        return (sum((~k).sum() for _, k in run[parts[part]]).item()
+                / sum(k.numel() for _, k in run[parts[part]]))
+
+    out = {}
+    for name in ("kernel", "floor"):
+        if len(routes[name]) != len(routes["plain"]):
+            raise AssertionError(f"{tag} {name}: {len(routes[name])} routings, plain path "
+                                 f"{len(routes['plain'])}")
+        out[name] = {part: differ(routes[name], part) for part in parts}
+        r = out[name]
+        log(f"{tag} routing, {'kernel path' if name == 'kernel' else 'noise floor'} vs plain "
+            f"path: top-k sets differ on {r['prefill']['topk_differ']:.3%} of "
+            f"{r['prefill']['pairs']} (layer, token) pairs in prefill and "
+            f"{r['decode']['topk_differ']:.3%} of {r['decode']['pairs']} in decode; kept masks "
+            f"on {r['prefill']['kept_differ']:.3%} and {r['decode']['kept_differ']:.3%}")
+    out["dropped"] = {name: {part: dropped(run, part) for part in parts}
+                      for name, run in routes.items()}
+    log(f"{tag} routing: assignments dropped (prefill / decode): " + ", ".join(
+        f"{name} {d['prefill']:.3%} / {d['decode']:.3%}" for name, d in out["dropped"].items()))
+    return out
 
 
 def _teacher_forced(torch, prefill, decode, params, batch, inputs, prompt):
@@ -1313,10 +1400,12 @@ def _parity(name, got, want):
     return res
 
 
-def _rel_by_kind(got, want):
+def _rel_by_kind(got, want, V):
     """Relative rms error, max over the leaves of each kind: "logits" (every
-    step) and each cache key (final and primed caches together)."""
-    out = {"logits": max(_relrms(a, b) for a, b in zip(got[0], want[0]))}
+    step, over the V real vocabulary entries: the padded ones are -1e30,
+    whose square overflows) and each cache key (final and primed caches
+    together)."""
+    out = {"logits": max(_relrms(a[:, :V], b[:, :V]) for a, b in zip(got[0], want[0]))}
     for g_cache, w_cache in ((got[1], want[1]), (got[2], want[2])):
         for g, w in zip(g_cache, w_cache):
             for key in w:
@@ -1454,14 +1543,17 @@ def _planted(ops, **fns):
             setattr(ops, name, fn)
 
 
-def _profile(torch, name, fn):
+def _profile(torch, name, fn, cfg=None):
     """Run ``fn`` once under torch.profiler; log wall time, the device's busy
-    and idle shares, and the kernels that took the most device time.  The
-    profiler slows the host, so the idle share is an upper bound."""
+    and idle shares, and the kernels that took the most device time; on a
+    MoE path (``cfg.moe``) also the device time by part (``_moe_split``).
+    The profiler slows the host, so the idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
+    moe = cfg is not None and cfg.moe is not None
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=moe) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -1492,8 +1584,43 @@ def _profile(torch, name, fn):
     for key, ms in sorted(plain_bwd.items()):
         log(f"[profile]   {key}: {ms:.3f} ms device, {100 * ms / busy_ms:.1f}% of the busy time"
             if ms > 0 else f"[profile]   {key}: device time not measured (0 attributed)")
-    return out, {"wall_ms": wall_ms, "busy_ms": busy_ms, "device_ops": n_kernels,
-                 "plain_backward_ms": plain_bwd}
+    reading = {"wall_ms": wall_ms, "busy_ms": busy_ms, "device_ops": n_kernels,
+               "plain_backward_ms": plain_bwd}
+    if moe:
+        reading["parts_ms"] = _moe_split(prof, cfg, plain_bwd)
+        for part, ms in reading["parts_ms"].items():
+            log(f"[profile]   {part}: {ms:.3f} ms device, {100 * ms / busy_ms:.1f}% of the busy "
+                f"time")
+    return out, reading
+
+
+def _moe_split(prof, cfg, plain_bwd):
+    """Device ms of a profiled MoE run by part, from the aten ops that launch
+    the kernels (forward, remat recompute and backward alike): the experts'
+    products (``bmm`` batched over the E experts), the dispatch and combine
+    (the gathers and their ``index_add_`` backward, the slot table's
+    ``scatter_``, the combine's weighted sum: ``bmm`` with a unit dimension)
+    and attention (the flash and decode kernels and ops' plain attention
+    backward).  Routing, norms, projections and the head are the rest."""
+    from torch.autograd import DeviceType
+
+    parts = {"moe expert products": 0.0, "moe dispatch/combine": 0.0, "attention": 0.0}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != DeviceType.CPU:
+            if re.search(r"\b(fa_fwd|decode)_(bf16|f32)\b", e.key):  # the ctypes-launched kernels
+                parts["attention"] += e.self_device_time_total / 1e3
+            continue
+        shape = e.input_shapes[0] if e.input_shapes else []
+        if e.key == "aten::bmm" and len(shape) == 3:
+            if shape[0] == cfg.moe.num_experts:
+                parts["moe expert products"] += e.device_time_total / 1e3
+            elif 1 in shape[1:]:
+                parts["moe dispatch/combine"] += e.device_time_total / 1e3
+        elif e.key in ("aten::index_select", "aten::index_add_") or \
+                (e.key == "aten::scatter_" and len(shape) == 1):  # not one_hot's scatter_
+            parts["moe dispatch/combine"] += e.device_time_total / 1e3
+    parts["attention"] += plain_bwd.get("plain backward: attention", 0.0)
+    return parts
 
 
 # ---------------------------------------------------------------------------
@@ -1512,8 +1639,14 @@ GRAD_TOL = {"attention": 2e-4, "mamba2": 2e-3, "rwkv6": 2e-3}
 # (the loss chunk's fp32 logits over the 256,000-token vocab), and batch 8
 # ran out of memory.  Every step's peak must stay within TRAIN_MEM_SHARE of
 # the card.
+# granite-moe-3b-a800m trains under its config's remat policy, "dots", at full
+# width with 16 of its 32 layers: state at ~16 B a parameter is ~54 GB at
+# full depth (3.375 B), and the kernel-vs-plain parity step holds a second
+# copy beside it; at 16 layers (1.763 B) the state is ~28 GB, ~63 GB with
+# the copy and the plain step's master.
 TRAIN_PATHS = (("tinyllama-1.1b", None, 8, 1024), ("zamba2-1.2b", None, 8, 1024),
-               ("rwkv6-7b", 4, 8, 1024), ("gemma-2b", None, 6, 1024))
+               ("rwkv6-7b", 4, 8, 1024), ("gemma-2b", None, 6, 1024),
+               ("granite-moe-3b-a800m", 16, 8, 1024))
 TRAIN_MEM_SHARE = 0.85
 TRAIN_STEPS = 4
 TRAIN_LR = 1e-3
@@ -1645,12 +1778,13 @@ def phase_train(torch, smi, arch, layers, batch_size, seq):
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     step = make_train_step(model, opt_cfg)
     want = _expected_train_launches(cfg)
-    times, losses, gnorms, launches = [], [], [], []
+    times, losses, gnorms, launches, auxes = [], [], [], [], []
     for i in range(TRAIN_STEPS):
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, met = step(state, batch)
+        with _aux_recorded(auxes):
+            state, met = step(state, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts = ops.launch_counts()
@@ -1660,6 +1794,7 @@ def phase_train(torch, smi, arch, layers, batch_size, seq):
         if counts != want:
             raise AssertionError(f"{arch} train step {i + 1}: launch counts {counts}, "
                                  f"expected {want}")
+    auxes = [a.item() for a in auxes]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = min(times[1:]) * 1e3
     tok_s = batch_size * seq / (step_ms / 1e3)
@@ -1672,6 +1807,9 @@ def phase_train(torch, smi, arch, layers, batch_size, seq):
         f"{peak_gb:.2f} GB allocated, on {smi}")
     log(f"{tag} loss {losses[0]:.4f} -> {losses[-1]:.4f} ({[round(x, 4) for x in losses]}), "
         f"grad norm {[round(x, 4) for x in gnorms]}")
+    if cfg.moe is not None:
+        log(f"{tag} the loss is xent + aux: aux {[round(a, 6) for a in auxes]}, xent "
+            f"{[round(x - a, 4) for x, a in zip(losses, auxes)]}")
     log(f"{tag} launches per step: {launches[0]} (expected {want}, every step)")
     if not all(math.isfinite(x) for x in losses + gnorms):
         raise AssertionError(f"{arch}: a loss or grad norm is not finite: {losses}, {gnorms}")
@@ -1683,14 +1821,18 @@ def phase_train(torch, smi, arch, layers, batch_size, seq):
         raise AssertionError(f"{arch}: a train step peaked at {peak_gb:.2f} GB, beyond "
                              f"{TRAIN_MEM_SHARE:.0%} of the card's {total_gb:.2f} GB")
 
-    _, prof = _profile(torch, f"{arch} train step", lambda: step(state, batch))
+    _, prof = _profile(torch, f"{arch} train step", lambda: step(state, batch), cfg)
     del met
     readings = {"arch": arch, "layers": cfg.n_layers, "params": n_params, "batch": batch_size,
                 "seq": seq, "step_ms": step_ms, "step_times_ms": [t * 1e3 for t in times],
-                "tok_per_s": tok_s, "peak_gb": peak_gb, "losses": losses, "grad_norms": gnorms,
+                "tok_per_s": tok_s, "peak_gb": peak_gb, "losses": losses, "aux": auxes,
+                "grad_norms": gnorms,
                 "launches_per_step": launches[0],
                 "launches": {k: sum(c[k] for c in launches) for k in launches[0]},
                 "profile": prof}
+
+    if cfg.remat and cfg.remat_policy == "dots":
+        readings["dots_vs_remat_off"] = _dots_parity(torch, tag, cfg, state, batch)
 
     # the parity steps hold a copy of the state and the plain step's master
     # beside a step
@@ -1768,6 +1910,63 @@ def phase_train(torch, smi, arch, layers, batch_size, seq):
                 "floor": {k: floor[k] for k in ("loss", "grad_norm")},
                 "control": fault, "control_caught": len(caught)})
     return readings
+
+
+@contextlib.contextmanager
+def _aux_recorded(record):
+    """Append the aux loss of each ``lm.backbone`` call (one a loss) to
+    ``record``."""
+    from repro_torch.models import lm
+
+    backbone = lm.backbone
+
+    def recording(cfg, params, batch):
+        h, aux = backbone(cfg, params, batch)
+        record.append(aux.detach())
+        return h, aux
+
+    with _planted(lm, backbone=recording):
+        yield
+
+
+def _dots_parity(torch, tag, cfg, state, batch):
+    """The ``dots`` policy's loss and grads against remat off on the same
+    params: bit for bit, or within twice the spread of two ``dots`` runs per
+    reading where the backward is not deterministic (the gathers' backward
+    adds a token's k contributions with atomics)."""
+    from repro_torch.bridge import leaf_names
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def grads(c):
+        params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
+        with torch.enable_grad():
+            loss = build_model(c).loss(params, batch)
+            return [loss.detach()] + list(torch.autograd.grad(loss, tree_leaves(params)))
+
+    def rel(a, b):
+        return [((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30)).item()
+                for x, y in zip(a, b)]
+
+    names = ["loss"] + leaf_names(state["params"])
+    dots = grads(cfg)
+    spread = rel(grads(cfg), dots)
+    off = grads(replace(cfg, remat=False))
+    got = rel(off, dots)
+    same = sum(torch.equal(a, b) for a, b in zip(off, dots))
+    bad = [n for n, g, f in zip(names, got, spread) if not g <= 2 * f]
+    worst = max(range(len(names)), key=lambda i: got[i])
+    log(f"{tag} dots vs remat off, loss and {len(names) - 1} grad leaves: {same} of "
+        f"{len(names)} bit for bit; loss {got[0]:.2e}; worst {names[worst]} {got[worst]:.2e} "
+        f"(two dots runs: {spread[worst]:.2e}, largest spread {max(spread):.2e}); limit 2 x "
+        f"that spread per reading (bit for bit where it is 0): "
+        f"{'FAIL ' + str(bad[:4]) if bad else 'ok'}")
+    if bad:
+        raise AssertionError(f"{cfg.name}: the dots policy's loss or grads differ from remat "
+                             f"off on {bad}")
+    del dots, off
+    return {"bit_for_bit": same, "readings": len(names), "worst": [names[worst], got[worst]],
+            "largest_spread": max(spread)}
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 The ids and aliases are the reference package's.  Each ported module
 defines ``full()`` (the published configuration) and ``smoke()`` (a
 reduced same-family config that runs on the CPU).  Only the ids in
-``PORTED`` have a module so far; ``get_config`` refuses the others.
+``PORTED`` have a module so far; ``get_config`` refuses the others, naming
+what each still lacks (``UNPORTED``).
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ ALIASES = {
 }
 
 PORTED = ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b", "gemma_2b", "gemma_7b",
-          "command_r_35b", "qwen2_vl_7b")
+          "command_r_35b", "qwen2_vl_7b", "granite_moe_3b_a800m")
+# what models/config.check_supported would refuse in each remaining arch
+UNPORTED = {"deepseek_v2_236b": "mla", "whisper_tiny": "enc_dec, mlp_act=gelu_mlp"}
 
 
 def resolve(arch: str) -> str:
@@ -51,6 +54,6 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if name not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}")
     if name not in PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet")
+        raise NotImplementedError(f"arch {arch!r} is not ported yet: {UNPORTED[name]}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.smoke() if smoke else mod.full()

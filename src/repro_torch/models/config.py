@@ -145,22 +145,22 @@ def check_supported(cfg: ModelConfig) -> None:
     The port covers the dense GQA/MQA decoders (RMSNorm or LayerNorm, the
     unit-offset norm, scaled and tied embeddings, qkv biases, parallel
     blocks, standard RoPE or M-RoPE with a stubbed visual frontend, gated
-    SiLU or GELU MLPs, a softcapped head), Mamba2 blocks with a shared
-    attention block (Zamba2) and RWKV6 blocks.  MoE, MLA, the
-    encoder-decoder, the plain GELU MLP and the ``dots`` remat policy wait
-    for a later slice, and refusing them here keeps a config from silently
-    running a different model.
+    SiLU or GELU MLPs, a softcapped head), mixture-of-experts FFNs (routed
+    and shared experts, leading dense layers), Mamba2 blocks with a shared
+    attention block (Zamba2) and RWKV6 blocks, under either remat policy
+    (``"dots"``; any other name means nothing saved, as in the reference).
+    MLA, the encoder-decoder and the plain GELU MLP wait for a later slice,
+    and refusing them here keeps a config from silently running a
+    different model.
     """
     unported = sorted(set(cfg.blocks) - set(_PORTED_BLOCKS))
     missing = [name for name, on in (
-        ("moe", cfg.moe is not None),
         ("mla", cfg.mla is not None),
         ("enc_dec", cfg.enc_dec is not None),
         ("block kinds " + ",".join(unported), bool(unported)),
         ("rope_type=" + cfg.rope_type, cfg.rope_type not in ("standard", "mrope", "none")),
         ("norm=" + cfg.norm, cfg.norm not in ("rmsnorm", "layernorm")),
         ("mlp_act=" + cfg.mlp_act, cfg.mlp_act not in ("silu", "swiglu", "gelu", "geglu")),
-        ("remat_policy=" + cfg.remat_policy, cfg.remat_policy != "nothing"),
     ) if on]
     if missing:
         raise NotImplementedError(

@@ -3,10 +3,12 @@
 Twin of the reference's ``models/lm.py`` for the blocks ported so far:
 ``attn`` blocks with a dense ``mlp`` FFN (TinyLlama, Gemma, Command-R,
 Qwen2-VL: sequential or parallel attention and MLP, tied or untied head,
-visual embeddings spliced over the first token slots), ``mamba2`` blocks
-with a ``shared_attn`` block (Zamba2), and ``rwkv6`` blocks.  Layers are grouped
-into runs of identical (block kind, ffn kind); each ``shared_attn`` stands
-alone.  Each run's parameters are stacked with a leading layer axis, and a
+visual embeddings spliced over the first token slots) or a ``moe`` FFN
+(Granite-MoE; leading ``dense`` layers of width ``moe.dense_d_ff``),
+``mamba2`` blocks with a ``shared_attn`` block (Zamba2), and ``rwkv6``
+blocks.  Layers are grouped into runs of identical (block kind, ffn kind);
+each ``shared_attn`` stands alone.  Each run's parameters are stacked with
+a leading layer axis, and a
 ``shared_attn`` group holds ``{}`` in ``layers`` while the one shared block
 sits unstacked in ``shared_block``, so the parameter tree has the
 reference's leaf names and shapes.  The reference's ``lax.scan`` over a
@@ -28,13 +30,16 @@ Training differentiates through the same forward.  A stacked run is split
 into per-layer views with ``unbind``, whose backward stacks the layers'
 gradients into the stacked leaf in one copy; the shared block's gradients
 add up over its uses, as through the reference's scans.  ``cfg.remat``
-runs each layer under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint`` with nothing saved).
+runs each layer under ``torch.utils.checkpoint``: with ``remat_policy``
+``"dots"`` selectively, saving the outputs of 2-D matrix products (the
+reference's ``dots_with_no_batch_dims_saveable``), else saving nothing
+(its ``nothing_saveable``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -42,7 +47,8 @@ import torch
 from . import attention as attn
 from . import mlp as mlpm
 from . import ssm
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .common import (apply_norm, chunked_softmax_xent, dense_init, embed_tokens,
                      embedding_init, lm_head_logits, merge_visual, norm_init,
@@ -55,16 +61,26 @@ Tree = Dict[str, Any]
 @dataclass(frozen=True)
 class LayerGroup:
     kind: str      # attn | mamba2 | rwkv6 | shared_attn
-    ffn: str       # mlp | none
+    ffn: str       # moe | mlp | dense | none
     start: int     # absolute index of first layer in the group
     count: int
+
+
+def _ffn_kind(cfg: ModelConfig, layer_idx: int) -> str:
+    kind = cfg.blocks[layer_idx]
+    if kind in ("mamba2", "rwkv6"):
+        return "none"
+    m = cfg.moe
+    if m is None:
+        return "mlp"
+    return "moe" if layer_idx >= m.first_dense_layers else "dense"
 
 
 def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
     check_supported(cfg)
     groups: List[LayerGroup] = []
     for i, kind in enumerate(cfg.blocks):
-        sig = (kind, "none" if kind in ("mamba2", "rwkv6") else "mlp")
+        sig = (kind, _ffn_kind(cfg, i))
         if groups and kind != "shared_attn" \
                 and (groups[-1].kind, groups[-1].ffn) == sig:
             g = groups[-1]
@@ -113,26 +129,35 @@ def _unstack(tree: Tree, count: int) -> List[Tree]:
     return list(tree.unbind(0))
 
 
-def _walk(cfg: ModelConfig, params: Tree) -> Iterator[Tuple[int, int, str, Tree]]:
-    """(group index, index in the group, block kind, layer params) for every
-    layer in order; a ``shared_attn`` layer gets the shared block."""
+def _walk(cfg: ModelConfig, params: Tree) -> Iterator[Tuple[int, int, str, str, Tree]]:
+    """(group index, index in the group, block kind, ffn kind, layer params)
+    for every layer in order; a ``shared_attn`` layer gets the shared block
+    and its dense MLP."""
     for gi, g in enumerate(layer_groups(cfg)):
         if g.kind == "shared_attn":
             for i in range(g.count):
-                yield gi, i, "attn", params["shared_block"]
+                yield gi, i, "attn", "mlp", params["shared_block"]
         else:
             for i, lp in enumerate(_unstack(params["layers"][gi], g.count)):
-                yield gi, i, g.kind, lp
+                yield gi, i, g.kind, g.ffn, lp
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _block_init(cfg: ModelConfig, kind: str, gen: torch.Generator) -> Tree:
+def _ffn_init(cfg: ModelConfig, ffn: str, gen: torch.Generator) -> Tree:
+    if ffn == "moe":
+        return mlpm.moe_init(cfg, gen)
+    if ffn == "dense":
+        return mlpm.mlp_init(cfg, gen, d_ff=cfg.moe.dense_d_ff)
+    return mlpm.mlp_init(cfg, gen)
+
+
+def _block_init(cfg: ModelConfig, kind: str, ffn: str, gen: torch.Generator) -> Tree:
     dev = gen.device
     if kind == "attn":
         p = {"ln1": norm_init(cfg, dev), "attn": attn.attn_init(cfg, gen),
-             "ffn": mlpm.mlp_init(cfg, gen)}
+             "ffn": _ffn_init(cfg, ffn, gen)}
         if not cfg.parallel_block:
             p["ln2"] = norm_init(cfg, dev)
         return p
@@ -147,7 +172,7 @@ def _block_init(cfg: ModelConfig, kind: str, gen: torch.Generator) -> Tree:
 def init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
     """Random weights on ``gen.device`` with the reference's distributions."""
     layers = [{} if g.kind == "shared_attn"
-              else _stacked(lambda: _block_init(cfg, g.kind, gen), g.count)
+              else _stacked(lambda: _block_init(cfg, g.kind, g.ffn, gen), g.count)
               for g in layer_groups(cfg)]
     params: Tree = {
         "embed": embedding_init(cfg, gen),
@@ -155,7 +180,7 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
         "layers": layers,
     }
     if "shared_attn" in cfg.blocks:
-        params["shared_block"] = _block_init(cfg, "attn", gen)
+        params["shared_block"] = _block_init(cfg, "attn", "mlp", gen)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, (cfg.padded_vocab,),
                                        cfg.param_tdtype()).t().contiguous()
@@ -167,14 +192,26 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def _attn_layer(cfg: ModelConfig, lp: Tree, x: torch.Tensor, mix) -> torch.Tensor:
-    """Pre-norm residual block: x + mix(norm(x)), then x + mlp(norm(x));
-    with ``parallel_block`` both read the one norm: x + mix(h) + mlp(h)."""
+def _apply_ffn(cfg: ModelConfig, ffn: str, fp: Tree, h: torch.Tensor,
+               serve: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(y, aux loss); only a ``moe`` FFN has an aux loss, the others None."""
+    if ffn == "moe":
+        return mlpm.moe_apply(cfg, fp, h, serve=serve)
+    return mlpm.mlp_apply(cfg, fp, h), None
+
+
+def _attn_layer(cfg: ModelConfig, ffn: str, lp: Tree, x: torch.Tensor, mix,
+                serve: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Pre-norm residual block: x + mix(norm(x)), then x + ffn(norm(x));
+    with ``parallel_block`` both read the one norm: x + mix(h) + ffn(h).
+    Returns the new x and the FFN's aux loss."""
     h = apply_norm(cfg, lp["ln1"], x)
     if cfg.parallel_block:
-        return x + mix(h) + mlpm.mlp_apply(cfg, lp["ffn"], h)
+        f, aux = _apply_ffn(cfg, ffn, lp["ffn"], h, serve)
+        return x + mix(h) + f, aux
     x = x + mix(h)
-    return x + mlpm.mlp_apply(cfg, lp["ffn"], apply_norm(cfg, lp["ln2"], x))
+    f, aux = _apply_ffn(cfg, ffn, lp["ffn"], apply_norm(cfg, lp["ln2"], x), serve)
+    return x + f, aux
 
 
 def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
@@ -194,30 +231,53 @@ def _head(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
     return lm_head_logits(cfg, params["embed"], params.get("lm_head"), x)
 
 
-def _apply_layer(cfg: ModelConfig, kind: str, lp: Tree, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+def _apply_layer(cfg: ModelConfig, kind: str, ffn: str, lp: Tree, x: torch.Tensor,
+                 positions: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer of the training forward: (new x, aux loss or None)."""
     if kind == "attn":
-        return _attn_layer(cfg, lp, x, lambda h: attn.attn_apply(cfg, lp["attn"], h, positions))
+        return _attn_layer(cfg, ffn, lp, x,
+                           lambda h: attn.attn_apply(cfg, lp["attn"], h, positions), False)
     if kind == "mamba2":
-        return x + ssm.mamba2_apply(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x))
+        return x + ssm.mamba2_apply(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x)), None
     if kind == "rwkv6":
         x = x + ssm.rwkv6_time_mix(cfg, lp["tm"], apply_norm(cfg, lp["ln1"], x))[0]
-        return x + ssm.rwkv6_channel_mix(cfg, lp["tm"], apply_norm(cfg, lp["ln2"], x))[0]
+        return x + ssm.rwkv6_channel_mix(cfg, lp["tm"], apply_norm(cfg, lp["ln2"], x))[0], None
     raise ValueError(kind)
 
 
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The counterpart of ``dots_with_no_batch_dims_saveable``: the outputs of
+    2-D matrix products are saved (the projections), batched products
+    (``bmm``, ``baddbmm``: the experts', whose groups the reference vmaps)
+    and everything else are recomputed.  The router's fp32 product is a 2-D
+    ``mm`` here, saved where the reference's vmap recomputes it: the same
+    values either way.  The kernels' ctypes launches write into outputs
+    from ``torch.empty``, which is recomputed too, so the recompute
+    launches each kernel again."""
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def backbone(cfg: ModelConfig, params: Tree, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens -> final hidden states (B,S,D) and the total aux loss (zero:
-    no ported block has one)."""
+    """tokens -> final hidden states (B,S,D) and the layers' summed aux loss."""
     x = _embed(cfg, params, batch["tokens"], batch)
     positions = positions_for(cfg, batch)
-    for _, _, kind, lp in _walk(cfg, params):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = dict(use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        remat["context_fn"] = partial(create_selective_checkpoint_contexts, _dots_policy)
+    for _, _, kind, ffn, lp in _walk(cfg, params):
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_apply_layer, cfg, kind, lp, x, positions, use_reentrant=False)
+            x, aux = checkpoint(_apply_layer, cfg, kind, ffn, lp, x, positions, **remat)
         else:
-            x = _apply_layer(cfg, kind, lp, x, positions)
+            x, aux = _apply_layer(cfg, kind, ffn, lp, x, positions)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = apply_norm(cfg, params["final_norm"], x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 def loss(cfg: ModelConfig, params: Tree, batch: Dict) -> torch.Tensor:
@@ -267,12 +327,12 @@ def _write(cache: Tree, state: Tree) -> None:
         cache[k].copy_(v)
 
 
-def _prefill_layer(cfg: ModelConfig, kind: str, lp: Tree, x: torch.Tensor,
+def _prefill_layer(cfg: ModelConfig, kind: str, ffn: str, lp: Tree, x: torch.Tensor,
                    positions: torch.Tensor, c: Tree) -> torch.Tensor:
     """One layer over the prompt; writes its cache ``c`` in place."""
     if kind == "attn":
-        return _attn_layer(cfg, lp, x, lambda h: attn.attn_prefill(
-            cfg, lp["attn"], h, positions, c)[0])
+        return _attn_layer(cfg, ffn, lp, x, lambda h: attn.attn_prefill(
+            cfg, lp["attn"], h, positions, c)[0], True)[0]
     if kind == "mamba2":
         out, state = ssm.mamba2_prefill(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x))
         _write(c, state)
@@ -286,12 +346,12 @@ def _prefill_layer(cfg: ModelConfig, kind: str, lp: Tree, x: torch.Tensor,
     raise ValueError(kind)
 
 
-def _decode_layer(cfg: ModelConfig, kind: str, lp: Tree, x: torch.Tensor,
+def _decode_layer(cfg: ModelConfig, kind: str, ffn: str, lp: Tree, x: torch.Tensor,
                   pos: torch.Tensor, c: Tree) -> torch.Tensor:
     """One layer for one token; writes its cache ``c`` in place."""
     if kind == "attn":
-        return _attn_layer(cfg, lp, x, lambda h: attn.attn_decode(
-            cfg, lp["attn"], h, pos, c)[0])
+        return _attn_layer(cfg, ffn, lp, x, lambda h: attn.attn_decode(
+            cfg, lp["attn"], h, pos, c)[0], True)[0]
     if kind == "mamba2":
         out, state = ssm.mamba2_decode(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x), c)
         _write(c, state)
@@ -314,8 +374,8 @@ def prefill(cfg: ModelConfig, params: Tree, batch: Dict,
     x = _embed(cfg, params, tokens, batch)
     positions = positions_for(cfg, batch)
     cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
-    for gi, i, kind, lp in _walk(cfg, params):
-        x = _prefill_layer(cfg, kind, lp, x, positions, _index(cache[gi], i))
+    for gi, i, kind, ffn, lp in _walk(cfg, params):
+        x = _prefill_layer(cfg, kind, ffn, lp, x, positions, _index(cache[gi], i))
     return _head(cfg, params, x[:, -1]), cache
 
 
@@ -323,6 +383,6 @@ def decode_step(cfg: ModelConfig, params: Tree, cache: List[Tree],
                 token: torch.Tensor, pos: torch.Tensor) -> tuple:
     """One decode step.  token: (B,), pos: (B,) int32 -> logits (B, V)."""
     x = _embed(cfg, params, token[:, None])
-    for gi, i, kind, lp in _walk(cfg, params):
-        x = _decode_layer(cfg, kind, lp, x, pos, _index(cache[gi], i))
+    for gi, i, kind, ffn, lp in _walk(cfg, params):
+        x = _decode_layer(cfg, kind, ffn, lp, x, pos, _index(cache[gi], i))
     return _head(cfg, params, x[:, 0]), cache

@@ -5,7 +5,8 @@ JAX package's.
   the wall time) and the same shard bytes, full and delta;
 * restores across the packages: bf16 leaves bit for bit, both ways, and
   delta chains whose members alternate between the packages; a tied-head
-  (gemma-2b smoke) train state both ways;
+  (gemma-2b smoke) train state both ways; a granite-moe smoke train state
+  (fp32 router beside bf16 experts) both ways;
 * the write-behind snapshot is a copy: the state is written into in place,
   as the port's AdamW does, before the background writer reads a byte;
 * the port saves and restores bf16 without ``ml_dtypes``;
@@ -49,6 +50,10 @@ from repro_torch.core.patterns import register_patterns
 from repro_torch.data import DataConfig, ShardedTokenDataset, TokenBatchLoader, write_synthetic_dataset
 from repro_torch.store.recordio import write_shard
 from repro_torch.tree import tree_leaves, tree_map
+
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 # small chunks, so that every leaf spans several extents over three shards
@@ -224,6 +229,53 @@ def test_tied_train_state_restores_across_packages(tmp_path, writer):
         step, got, _ = jm.restore_latest(like=jstate)
         assert got["params"]["embed"]["tok"].dtype == jnp.bfloat16
     assert step == 3
+    _assert_same_bits(got, want)
+    jm.fa.shutdown()
+    tm.fa.shutdown()
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_moe_train_state_restores_across_packages(tmp_path, writer):
+    """A granite-moe smoke train state with bf16 params, whose router stays
+    fp32 beside the bf16 experts, saved by one package and restored by the
+    other, bit for bit, its leaf names and dtypes the same on both sides."""
+    from dataclasses import replace
+
+    from repro.configs import get_config as jget_config
+    from repro.models import build_model as jbuild_model
+    from repro.optim.adamw import AdamWConfig as JAdamWConfig
+    from repro.optim.adamw import adamw_init as jadamw_init
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_state
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    arch = "granite-moe-3b-a800m"
+    jparams = jbuild_model(replace(jget_config(arch, smoke=True), **bf16)).init(
+        jax.random.PRNGKey(1))
+    jstate = {"params": jparams, "opt": jadamw_init(JAdamWConfig(), jparams)}
+    tstate = make_train_state(build_model(replace(get_config(arch, smoke=True), **bf16)),
+                              AdamWConfig(), torch.Generator().manual_seed(2))
+    assert bridge.leaf_names(tstate) == [
+        jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_leaves_with_path(jstate)]
+    ffn = tstate["params"]["layers"][0]["ffn"]
+    assert ffn["router"].dtype == torch.float32 and ffn["wi"].dtype == torch.bfloat16
+    jm = JManager(JOS(), str(tmp_path), **MGR)
+    tm = CheckpointManager(OSDevice(), str(tmp_path), **MGR)
+    if writer == "jax":
+        jm.save(5, jstate)
+        want = jax.tree.map(np.asarray, jstate)
+        step, got, _ = tm.restore_latest(like=tstate)
+        ffn = got["params"]["layers"][0]["ffn"]
+        assert ffn["router"].dtype == torch.float32 and ffn["wo"].dtype == torch.bfloat16
+    else:
+        tm.save(5, tstate)
+        want = bridge.params_to_numpy(tstate)
+        step, got, _ = jm.restore_latest(like=jstate)
+        ffn = got["params"]["layers"][0]["ffn"]
+        assert ffn["router"].dtype == jnp.float32 and ffn["wo"].dtype == jnp.bfloat16
+    assert step == 5
     _assert_same_bits(got, want)
     jm.fa.shutdown()
     tm.fa.shutdown()

@@ -14,6 +14,10 @@ from repro_torch.kernels import mamba2_scan as m2
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_scan as r6
 
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
+
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions_on_the_card():

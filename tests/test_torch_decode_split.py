@@ -22,6 +22,10 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import flash_decode as j_flash_decode
 from repro_torch.kernels import decode_attention as dec
 
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
+
 TOL = 2e-5
 T_RAGGED = 600  # a multiple of neither the 16-key chunk nor the 64-key tile
 KV, D = 2, 64

@@ -39,6 +39,10 @@ from repro_torch.models import common
 from repro_torch.optim import global_norm
 from repro_torch.tree import tree_leaves
 
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
+
 TOL = 1e-4
 B, S, GEN = 2, 32, 6
 MAX_LEN = S + GEN + 1

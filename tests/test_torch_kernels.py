@@ -23,6 +23,10 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
+
 TOL = {jnp.float32: 2e-5, jnp.bfloat16: 2e-2}
 
 

@@ -33,6 +33,10 @@ from repro.kernels.mamba2_scan import mamba2_scan as j_mamba2_scan
 from repro_torch.bridge import params_from_numpy
 from repro_torch.kernels import mamba2_scan as m2
 
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
+
 L = m2.CHUNK
 
 

@@ -21,6 +21,10 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update, cosine_sch
                                global_norm)
 from repro_torch.tree import tree_leaves
 
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
+
 TOL = 1e-6
 
 

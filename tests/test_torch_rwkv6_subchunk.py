@@ -35,6 +35,10 @@ from repro.kernels.rwkv6_scan import rwkv6_scan as j_rwkv6_scan
 from repro_torch.bridge import params_from_numpy
 from repro_torch.kernels import rwkv6_scan as r6
 
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
+
 L = r6.CHUNK
 
 

@@ -34,6 +34,10 @@ from repro_torch.models import build_model
 from repro_torch.models.common import lm_head_logits
 from repro_torch.models.config import EncDecConfig, MLAConfig, MoEConfig
 
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
+
 TOL = 1e-4
 B, S, GEN = 2, 32, 6
 MAX_LEN = S + GEN + 1
@@ -180,19 +184,21 @@ def test_serve_without_gpu_raises(monkeypatch):
         serve.main(["--smoke"])
 
 
-# Config branches on the tinyllama smoke config: the first ten are ported
+# Config branches on the tinyllama smoke config: the first twelve are ported
 # and held against JAX (leaf names, full logits, prefill and two decode
-# steps); the rest are refused by name.
+# steps; the MoE branch on its capacity path, with the train capacity in
+# the full logits and the serve capacity in prefill and decode, as the
+# reference); the rest are refused by name.
 BRANCHES = [
     dict(norm="layernorm"), dict(norm_unit_offset=True), dict(scale_embed=True),
     dict(logit_softcap=30.0), dict(qkv_bias=True), dict(tie_embeddings=True),
     dict(parallel_block=True), dict(rope_type="mrope", mrope_sections=(2, 3, 3)),
     dict(visual_stub=True), dict(mlp_act="gelu"),
+    dict(moe=MoEConfig(num_experts=4, top_k=2, d_expert=64)), dict(remat_policy="dots"),
     dict(block_pattern=("attn", "mla")), dict(mla=MLAConfig()),
-    dict(moe=MoEConfig(num_experts=4, top_k=2, d_expert=64)), dict(enc_dec=EncDecConfig()),
-    dict(mlp_act="gelu_mlp"), dict(remat_policy="dots"),
+    dict(enc_dec=EncDecConfig()), dict(mlp_act="gelu_mlp"),
 ]
-N_PORTED_BRANCHES = 10
+N_PORTED_BRANCHES = 12
 
 
 @pytest.mark.parametrize("change", BRANCHES)
@@ -231,12 +237,19 @@ def test_config_branch_matches_jax_or_raises(change):
 
 def test_unported_archs_raise():
     assert PORTED == ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b", "gemma_2b", "gemma_7b",
-                      "command_r_35b", "qwen2_vl_7b")
+                      "command_r_35b", "qwen2_vl_7b", "granite_moe_3b_a800m")
     unported = [arch for arch in ARCH_IDS if arch not in PORTED]
-    assert unported == ["deepseek_v2_236b", "granite_moe_3b_a800m", "whisper_tiny"]
+    assert unported == ["deepseek_v2_236b", "whisper_tiny"]
     for arch in unported:
         with pytest.raises(NotImplementedError):
             get_config(arch)
+    with pytest.raises(NotImplementedError, match="mla"):
+        get_config("deepseek-v2-236b")
+    cfg = get_config("granite-moe-3b-a800m")
+    assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (1536, 32, 24, 8, 64)
+    assert (cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_expert) == (40, 8, 512)
+    assert (cfg.moe.capacity_factor, cfg.moe.group_tokens, cfg.remat_policy) == (1.05, 256, "dots")
+    build_model(cfg)  # check_supported passes MoE and the dots policy
     assert get_config("tinyllama-1.1b").d_model == 2048
     assert get_config("zamba2-1.2b").d_model == 2048
     assert get_config("rwkv6-7b").d_model == 4096

@@ -35,6 +35,10 @@ from repro_torch.models.common import apply_norm, embed_tokens
 from repro_torch.models.lm import _index
 from repro_torch.models.ssm import _mamba2_split
 
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
+
 TOL = 1e-4
 B, S, GEN = 2, 32, 6
 MAX_LEN = S + GEN + 1

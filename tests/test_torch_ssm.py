@@ -24,6 +24,10 @@ from repro_torch.kernels import mamba2_scan as m2
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rwkv6_scan as r6
 
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
+
 
 def both(x):
     """The same values as a JAX array and as a CPU tensor (bit-identical,

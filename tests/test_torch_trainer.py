@@ -38,6 +38,10 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import Trainer, TrainerConfig
 from repro_torch.tree import tree_leaves
 
+# the test workers share the machine's cores: two intra-op threads each keep
+# torch from starving the others (tests/test_system.py times wall clocks)
+torch.set_num_threads(2)
+
 ARCH = "tinyllama_1_1b"
 DATA = dict(seq_len=32, batch_size=4, seed=5)
 CROSS_TOL = 1e-5
