@@ -13,10 +13,13 @@ Phases, each of which raises on failure (nothing is caught):
              the card, at the serve shape of every main path that attends
              (taken from its config: TinyLlama's GQA, Zamba2's MHA, and
              gemma-7b's, gemma-2b's, qwen2-vl-7b's, command-r-35b's and
-             granite-moe-3b-a800m's),
+             granite-moe-3b-a800m's; deepseek-v2-236b's MLA prefill, MHA
+             at D = 192 with V zero-padded from 128, whose padded output
+             columns must stay zeros),
              ragged ones, the edges of the flash kernel's tiles (S = T =
              128 and 129, S = 1 against T = 1065, S = 127 against T = 300,
-             KV = H at D = 128) and of the decode kernel's split of the
+             KV = H at D = 128, D = 192 at S = T = 129 with padded V and
+             at S = 130 against T = 257) and of the decode kernel's split of the
              cache (lengths 1, 2 and T, one below, at and one above a slice
              boundary, trailing CTAs empty, one CTA per pair, G = 1 to 32
              at D = 64 and 128, a small ragged cache at D = 256; at every
@@ -24,7 +27,8 @@ Phases, each of which raises on failure (nothing is caught):
              edges), in bf16 and fp32; the bf16 kernels also against dense
              fp32 references on the same bf16 values, with a tight limit
              that planted faults must break (the decode faults at every
-             decode serve shape); then timings of kernel, plain version
+             decode serve shape, the flash faults at TinyLlama's and
+             deepseek-v2's); then timings of kernel, plain version
              and the PyTorch library call (SDPA, a yardstick the port never
              calls): CUDA events for the flash kernel, profiler device time
              per call (and host µs per call) for the decode kernel, at the
@@ -43,29 +47,36 @@ Phases, each of which raises on failure (nothing is caught):
              reject; readings of each bf16 state with its decayed operand
              (Mamba2's B~, RWKV6's k~) rounded to one bf16 part; CTAs an SM
              of both bf16 kernels; timings of kernel and plain version.
-5. main    — eight paths, each full width in bf16 with random weights from
+5. main    — nine paths, each full width in bf16 with random weights from
              a seed, serving batch 8 and 64 greedy tokens through
              ``make_generate_loop``: tinyllama-1.1b (prompt 1000),
              zamba2-1.2b and rwkv6-7b (prompt 1024, a multiple of the
              reference's scan chunks; rwkv6 at 16 of its 32 layers),
              gemma-7b, gemma-2b, qwen2-vl-7b (8
              seeded visual embeddings), command-r-35b (prompt 1000;
-             36 of its 40 layers, the depth in ``PATHS``, printed) and
+             36 of its 40 layers, the depth in ``PATHS``, printed),
              granite-moe-3b-a800m (prompt 1000; 40 experts top-8 on the
-             capacity path).  Each checks its parameter leaves, launch
+             capacity path) and deepseek-v2-236b (prompt 1000; 8 of its
+             60 layers: the dense first layer and 7 MoE layers of 160
+             experts top-6 with 2 shared; MLA: the flash kernel in
+             prefill, latent-space decode without a kernel).  Each checks its parameter leaves, launch
              counts, token range, its peak memory (within 90% of the
              card), and the kernel path's logits (prefill and every decode
              step) and final cache against the plain path's, teacher
              forced (on the MoE path also the shares of (layer, token)
              pairs whose top-k experts and kept assignments differ, and of
              the assignments dropped); then the same check on paths with
-             planted faults, which it must reject; and profiles one
-             prefill and a window of decode steps (on the MoE path split
-             into expert products, dispatch/combine and attention).
+             planted faults, which it must reject (on the MLA path a
+             fault of its latent decode too); and profiles one
+             prefill and a window of decode steps (on the MoE paths split
+             into expert products, dispatch/combine and attention, and on
+             the MLA path the MLA blocks' share).
 6. grads   — the three autograd Functions of ``kernels/ops.py`` (kernel
              forward, plain backward) against plain autograd in fp32 at
-             small shapes, at the reference's custom-VJP limits, and a
-             backward that drops one input's gradient, which must fail.
+             small shapes, at the reference's custom-VJP limits (attention
+             also as MLA calls it: D = 192, V padded from 128, scale
+             192^-0.5), and a backward that drops one input's gradient,
+             which must fail.
 7. train   — five paths in bf16 with random weights from a seed, through
              ``make_train_state``/``make_train_step``: tinyllama-1.1b and
              zamba2-1.2b full (batch 8, seq 1024), rwkv6-7b at full width
@@ -148,11 +159,24 @@ TIGHT_ATOL, TIGHT_RTOL = 5e-3, 1e-2
 # layers (full width) for time: with granite's paths the whole script took
 # 945.6 s of the 1200 s it may take (NVIDIA H100 80GB HBM3, 700.00 W), and
 # rwkv6's served path, host-bound at 3,769 device ops a decode step, was
-# the longest of them (73.7 s).  Every path's
+# the longest of them (73.7 s).  deepseek-v2-236b keeps 8 of its 60 layers
+# (full width): its dense first layer and 7 MoE layers.  A MoE layer is 7.94
+# GB of bf16 weights (160 experts of 3 x 5120 x 1536, the MLA projections
+# and the shared experts), the dense layer 0.68 GB, the embedding and the
+# untied head 2.10 GB: 58.4 GB at 8 layers.  While the stack is filled, one
+# layer's fp32 init copies add ~12 GB beside it; prefill adds the head's
+# fp32 copy (2.1 GB), the expert buffers at the serve capacity 3.0 (125
+# groups of 64 tokens, C = 7: 160 x 875 rows of 5120, 1.4 GB in and 1.4 GB
+# out) and q, k, padded V and o at (8, 128, 1000, 192) (0.4 GB each).  At 8
+# layers the init peaked at 69.2 GB and the phase at 74.35 GB (the plain
+# and fp32 attention of the teacher-forced checks) of the card's 85.02 GB
+# (NVIDIA H100 80GB HBM3, 700.00 W); a ninth layer's 7.94 GB would take it
+# past SERVE_MEM_SHARE.  Every path's
 # peak must stay within SERVE_MEM_SHARE of the card.
 PATHS = (("tinyllama-1.1b", 1000, None), ("zamba2-1.2b", 1024, None), ("rwkv6-7b", 1024, 16),
          ("gemma-7b", 1000, None), ("gemma-2b", 1000, None), ("qwen2-vl-7b", 1000, None),
-         ("command-r-35b", 1000, 36), ("granite-moe-3b-a800m", 1000, None))
+         ("command-r-35b", 1000, 36), ("granite-moe-3b-a800m", 1000, None),
+         ("deepseek-v2-236b", 1000, 8))
 SERVE_MEM_SHARE = 0.9
 BATCH, GEN = 8, 64
 PROMPT = PATHS[0][1]  # the attention kernels' main serve shapes are TinyLlama's
@@ -344,12 +368,15 @@ def phase_build():
     return libs
 
 
-def _prefill_inputs(torch, gen, B, H, KV, S, T, D, dtype):
-    # (B,S,H,D) activations seen as (B,H,S,D), as the model hands them over
+def _prefill_inputs(torch, gen, B, H, KV, S, T, D, dtype, dv=None):
+    """(B,S,H,D) activations seen as (B,H,S,D), as the model hands them over;
+    with ``dv``, V's columns from dv on are zeros (MLA's V, padded to D)."""
     q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype).transpose(1, 2)
     k = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    v = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    return q, k, v
+    v = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(dtype)
+    if dv is not None:
+        v[..., dv:] = 0
+    return q, k, v.transpose(1, 2)
 
 
 def _decode_inputs(torch, gen, B, H, KV, T, D, dtype, length):
@@ -362,8 +389,10 @@ def _decode_inputs(torch, gen, B, H, KV, T, D, dtype, length):
 
 def _serve_shapes():
     """The attention kernels' shapes on every main path that attends, from
-    its config: decode (B, H, KV, T, D) at the last step's cache, prefill
-    (B, H, KV, S, T, D, causal)."""
+    its config: decode (B, H, KV, T, D) at the last step's cache (None for
+    MLA, whose decode attends in the latent space, plain torch), prefill
+    (B, H, KV, S, T, D, causal), and the width of V before its zero
+    padding (MLA: v_head; else None)."""
     from repro_torch.configs import get_config
 
     out = {}
@@ -372,7 +401,11 @@ def _serve_shapes():
         if {"attn", "shared_attn"} & set(cfg.blocks):
             H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
             out[arch] = ((BATCH, H, KV, prompt + GEN + 1, D),
-                         (BATCH, H, KV, prompt, prompt, D, True))
+                         (BATCH, H, KV, prompt, prompt, D, True), None)
+        elif "mla" in cfg.blocks:  # MHA at qk_nope + qk_rope, V padded to it
+            m, H = cfg.mla, cfg.n_heads
+            out[arch] = (None, (BATCH, H, H, prompt, prompt, m.qk_nope + m.qk_rope, True),
+                         m.v_head)
     return out
 
 
@@ -385,11 +418,17 @@ def phase_kernels(torch):
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     errs = {}
     serve = _serve_shapes()
-    main_dec, main_fa = serve.pop("tinyllama-1.1b")
-    mha_dec, mha_fa = serve.pop("zamba2-1.2b")  # Zamba2's shared block: MHA
+    main_dec, main_fa, _ = serve.pop("tinyllama-1.1b")
+    mha_dec, mha_fa, _ = serve.pop("zamba2-1.2b")  # Zamba2's shared block: MHA
     # the dense paths that follow: each is checked at its serve shapes
-    dec_serve = {arch: shapes[0] for arch, shapes in serve.items()}
+    dec_serve = {arch: shapes[0] for arch, shapes in serve.items() if shapes[0] is not None}
     fa_serve = {arch: shapes[1] for arch, shapes in serve.items()}
+    # MLA's prefill (D = 192, V zero-padded from 128; the default scale
+    # D^-0.5 is MLA's (qk_nope + qk_rope)^-0.5), and at the tile edges:
+    # case -> V's width before the padding
+    mla_edge = (2, 8, 8, 129, 129, 192, True)
+    fa_dv = {shapes[1]: shapes[2] for shapes in serve.values() if shapes[2] is not None}
+    fa_dv[mla_edge] = 128
 
     # --- flash attention: (B, H, KV, S, T, D, causal)
     fa_cases = [main_fa, mha_fa,
@@ -403,16 +442,22 @@ def phase_kernels(torch):
                 (2, 32, 4, 1, 1065, 64, True),     # the last query of a long prompt
                 (2, 8, 2, 127, 300, 64, True),
                 (2, 8, 8, 200, 200, 128, True),    # KV = H at D = 128
+                (1, 4, 4, 130, 257, 192, True),    # D = 192, S != T, both ragged
+                mla_edge,
                 *fa_serve.values()]
+    mla_bf16 = {}  # bf16 inputs and output at each MLA serve shape: its controls
     for case in fa_cases:
         B, H, KV, S, T, D, causal = case
+        dv = fa_dv.get(case)
         for dname, dt in dtypes.items():
-            q, k, v = _prefill_inputs(torch, gen, B, H, KV, S, T, D, dt)
+            q, k, v = _prefill_inputs(torch, gen, B, H, KV, S, T, D, dt, dv)
             got = fa.flash_attention_fwd(q, k, v, causal)
             want = fa.attention_plain(q, k, v, causal)
             torch.cuda.synchronize()
             label = f"flash_attention_fwd {dname} B={B} H={H} KV={KV} S={S} T={T} D={D} " \
-                    f"causal={causal}"
+                    f"causal={causal}" + (f" V zero-padded from {dv}" if dv else "")
+            if dv is not None and got[..., dv:].abs().max().item() != 0.0:
+                raise AssertionError(f"{label}: the padded columns of the output are not zero")
             errs[("fa", case, dname)] = assert_close(label, got, want, TOL[dname])
             if dt == torch.bfloat16:
                 errs[("fa32", case)] = assert_close(
@@ -420,6 +465,9 @@ def phase_kernels(torch):
                     TIGHT_ATOL, TIGHT_RTOL)
             if case == main_fa and dt == torch.bfloat16:
                 main_bf16 = (q, k, v, got)
+            if case in fa_serve.values() and dv is not None and dt == torch.bfloat16:
+                mla_bf16[case] = (q, k, v, got)
+            del q, k, v, got, want
     # rows that see no key (causal, S > T) are zeros, as on the TPU
     for dname, dt in dtypes.items():
         q, k, v = _prefill_inputs(torch, gen, 1, 4, 2, 100, 60, 64, dt)
@@ -433,6 +481,8 @@ def phase_kernels(torch):
             assert_close(label + " vs fp32 reference", got,
                          attention_f32(torch, q, k, v, True), TIGHT_ATOL, TIGHT_RTOL)
     fa_controls = _kernel_controls(torch, *main_bf16)
+    mla_controls = {case: _kernel_controls(torch, *inputs) for case, inputs in mla_bf16.items()}
+    del mla_bf16
 
     # --- flash decode: (B, H, KV, T, D)
     T_main = main_dec[3]
@@ -503,13 +553,15 @@ def phase_kernels(torch):
     def flash_timing(case):
         """CUDA-event ms (kernel, plain, SDPA) and the bound at a prefill shape."""
         B, H, KV, S, T, D, _ = case
+        dv = fa_dv.get(case)
         nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * T * D)
-        fa_in = copies_beyond_l2(lambda: _prefill_inputs(torch, gen, B, H, KV, S, T, D, bf),
+        fa_in = copies_beyond_l2(lambda: _prefill_inputs(torch, gen, B, H, KV, S, T, D, bf, dv),
                                  nbytes)
         pairs = sum(min(T, i + T - S + 1) for i in range(S))  # causal (query, key) pairs
         t_bound, by = bound(4 * B * H * D * pairs, nbytes, PEAK_BF16_FLOPS)
         row = {
-            "shape": f"B={B} H={H} KV={KV} S={S} T={T} D={D} causal bf16",
+            "shape": f"B={B} H={H} KV={KV} S={S} T={T} D={D} causal bf16"
+                     + (f", V zero-padded from {dv}" if dv else ""),
             "max_abs_err": errs[("fa", case, "bfloat16")],
             "max_abs_err_fp32": errs[("fa", case, "float32")],
             "max_abs_err_vs_fp32_reference": errs[("fa32", case)],
@@ -532,7 +584,9 @@ def phase_kernels(torch):
         "tol": TOL["bfloat16"], "tol_fp32": TOL["float32"],
         "tol_vs_fp32_reference": {"atol": TIGHT_ATOL, "rtol": TIGHT_RTOL},
         "controls": fa_controls,
-        "shapes": {arch: flash_timing(case) for arch, case in fa_serve.items()}})
+        "shapes": {arch: dict(flash_timing(case), **({"controls": mla_controls[case]}
+                                                     if case in mla_controls else {}))
+                   for arch, case in fa_serve.items()}})
 
     def decode_timing(case):
         """Device ms (kernel, plain, SDPA) and host µs per call at a serve
@@ -1093,6 +1147,25 @@ def _expected_leaves(cfg):
             (("layers", 0, "tm", "w0"), (L, D), "float32"),
             (("layers", 0, "tm", "cm_k"), (L, D, cfg.d_ff), "bfloat16"),
             (("ln0", "scale"), (D,), "bfloat16")]
+    if cfg.mla is not None:  # a leading dense group of one layer, then the MoE layers
+        ml, m, n = cfg.mla, cfg.moe, L - cfg.moe.first_dense_layers
+        qk = ml.qk_nope + ml.qk_rope
+        return head + [
+            (("layers", 0, "attn", "q_down"), (1, D, ml.q_lora), "bfloat16"),
+            (("layers", 0, "attn", "q_norm", "scale"), (1, ml.q_lora), "bfloat16"),
+            (("layers", 0, "attn", "q_up"), (1, ml.q_lora, H, qk), "bfloat16"),
+            (("layers", 0, "attn", "wq"), None, "bfloat16"),
+            (("layers", 0, "ffn", "wi"), (1, D, m.dense_d_ff), "bfloat16"),
+            (("layers", 1, "attn", "kv_down"), (n, D, ml.kv_lora + ml.qk_rope), "bfloat16"),
+            (("layers", 1, "attn", "kv_norm", "scale"), (n, ml.kv_lora), "bfloat16"),
+            (("layers", 1, "attn", "k_up"), (n, ml.kv_lora, H, ml.qk_nope), "bfloat16"),
+            (("layers", 1, "attn", "v_up"), (n, ml.kv_lora, H, ml.v_head), "bfloat16"),
+            (("layers", 1, "attn", "wo"), (n, H, ml.v_head, D), "bfloat16"),
+            (("layers", 1, "ffn", "router"), (n, D, m.num_experts), "float32"),
+            (("layers", 1, "ffn", "wi"), (n, m.num_experts, D, m.d_expert), "bfloat16"),
+            (("layers", 1, "ffn", "wo"), (n, m.num_experts, m.d_expert, D), "bfloat16"),
+            (("layers", 1, "ffn", "shared", "wi"), (n, D, m.d_expert * m.num_shared),
+             "bfloat16")]
     m = cfg.moe  # MoE: the router fp32 beside the bf16 experts
     ffn = [(("layers", 0, "ffn", "wi"), (L, D, cfg.d_ff), "bfloat16")] if m is None else [
         (("layers", 0, "ffn", "router"), (L, D, m.num_experts), "float32"),
@@ -1112,10 +1185,13 @@ def _expected_leaves(cfg):
 
 
 def _expected_launches(cfg):
+    """Launches in one served run: a prefill, then GEN decode steps.  An
+    ``mla`` block runs the flash kernel in prefill and decodes in the
+    latent space, with no kernel."""
     n = {kind: sum(b == kind for b in cfg.blocks)
-         for kind in ("attn", "shared_attn", "mamba2", "rwkv6")}
+         for kind in ("attn", "shared_attn", "mla", "mamba2", "rwkv6")}
     n_attn = n["attn"] + n["shared_attn"]
-    return {"flash_attention_fwd": n_attn, "flash_decode": n_attn * GEN,
+    return {"flash_attention_fwd": n_attn + n["mla"], "flash_decode": n_attn * GEN,
             "mamba2_scan": n["mamba2"], "rwkv6_scan": n["rwkv6"]}
 
 
@@ -1272,8 +1348,8 @@ def phase_main(torch, smi, arch, prompt, layers):
 
     # controls: the same check on paths with planted faults
     controls = []
-    for fault, must_catch, patch in _faults(torch, ops, cfg):
-        with _planted(ops, **patch):
+    for fault, must_catch, target, patch in _faults(torch, ops, cfg):
+        with _planted(target, **patch):
             out = _teacher_forced(torch, prefill, kdec, params, batch, inputs, prompt)
         if floor is not None:
             reading = {"relative": _rel_by_kind(out, want, V)}
@@ -1328,7 +1404,7 @@ def _routing_report(tag, cfg, routes):
     mask (in top-k order), differ from the plain path's: the kernel path's
     and the noise floor's, over the prefill and the decode steps; and the
     share of assignments each run dropped."""
-    L = sum(b == "attn" for b in cfg.blocks) - cfg.moe.first_dense_layers
+    L = sum(b in ("attn", "mla") for b in cfg.blocks) - cfg.moe.first_dense_layers
     parts = {"prefill": slice(0, L), "decode": slice(L, None)}  # one routing a layer a step
 
     def differ(run, part):
@@ -1471,9 +1547,10 @@ def _floor_serve(cfg):
 
 
 def _faults(torch, ops, cfg):
-    """(fault, whether the limit must reject it, replacements for ops).
-    Each replacement calls the sound front door (and so the kernel) on
-    altered inputs or alters its outputs."""
+    """(fault, whether the limit must reject it, the module patched,
+    replacements for its functions).  Each replacement calls the sound
+    function (and so the kernel) on altered inputs or alters its
+    outputs."""
     if cfg.mamba is not None:
         mamba2 = ops.mamba2
 
@@ -1484,8 +1561,8 @@ def _faults(torch, ops, cfg):
             y, h = mamba2(x, dt, A, B, C, h0, impl)
             return y, torch.zeros_like(h)
 
-        return [("prefill scan fed dt/2", True, {"mamba2": dt_halved}),
-                ("prefill scan's final state zeroed", True, {"mamba2": state_zeroed})]
+        return [("prefill scan fed dt/2", True, ops, {"mamba2": dt_halved}),
+                ("prefill scan's final state zeroed", True, ops, {"mamba2": state_zeroed})]
     if cfg.rwkv is not None:
         rwkv6 = ops.rwkv6
 
@@ -1496,8 +1573,8 @@ def _faults(torch, ops, cfg):
         def w_halved(r, k, v, w, u, s0=None, impl="auto"):
             return rwkv6(r, k, v, w * 0.5, u, s0, impl)
 
-        return [("prefill scan's final state zeroed", True, {"rwkv6": wkv_zeroed}),
-                ("prefill scan fed w/2", True, {"rwkv6": w_halved})]
+        return [("prefill scan's final state zeroed", True, ops, {"rwkv6": wkv_zeroed}),
+                ("prefill scan fed w/2", True, ops, {"rwkv6": w_halved})]
     attention, decode_attention = ops.attention, ops.decode_attention
     H, KV = cfg.n_heads, cfg.n_kv_heads
     G = H // KV
@@ -1520,15 +1597,37 @@ def _faults(torch, ops, cfg):
     def newest_dropped(q, k, v, length, scale=None, impl="auto"):
         return decode_attention(q, k, v, length - 1, scale, impl)
 
+    prefill_fault = ("prefill rows see one future key", True, ops, {"attention": future_key})
+    if cfg.mla is not None:
+        # MLA's own decode, in the latent space (no kernel): its attention
+        # over the latent cache, with the attended latents of the heads
+        # rotated (head h then goes through head h's v_up with head h - 1's
+        # latent), or without the newest position
+        from repro_torch.models import attention as mla
+
+        latent = mla.mla_latent_attention
+
+        def latent_rotated(q_lat, q_pe, ckv, kpe, length, scale):
+            return latent(q_lat, q_pe, ckv, kpe, length, scale).roll(1, dims=1)
+
+        def latent_newest_dropped(q_lat, q_pe, ckv, kpe, length, scale):
+            return latent(q_lat, q_pe, ckv, kpe, length - 1, scale)
+
+        return [prefill_fault,
+                ("MLA decode head h gets head h - 1's attended latent", True, mla,
+                 {"mla_latent_attention": latent_rotated}),
+                ("MLA decode masks out the newest cache position", False, mla,
+                 {"mla_latent_attention": latent_newest_dropped})]
+
     # one key of 1000+ moves the logits about as much as bf16 rounding does:
     # read, not required
     # with KV = H (MHA) or KV = 1 (MQA) "h % KV" is every head's own KV
     # head; there the fault hands head h the output of head h - 1
     head_fault = (("decode head h reads KV head h % KV", head_mod) if 1 < KV < H else
                   ("decode head h gets head h - 1's output", heads_rotated))
-    return [("prefill rows see one future key", True, {"attention": future_key}),
-            (head_fault[0], True, {"decode_attention": head_fault[1]}),
-            ("decode drops the newest key", False, {"decode_attention": newest_dropped})]
+    return [prefill_fault,
+            (head_fault[0], True, ops, {"decode_attention": head_fault[1]}),
+            ("decode drops the newest key", False, ops, {"decode_attention": newest_dropped})]
 
 
 @contextlib.contextmanager
@@ -1543,28 +1642,49 @@ def _planted(ops, **fns):
             setattr(ops, name, fn)
 
 
+@contextlib.contextmanager
+def _mla_ranges(torch, cfg):
+    """On an MLA path, each MLA block's prefill and decode inside a profiler
+    range named "mla", whose device time ``_profile`` reads."""
+    if cfg is None or cfg.mla is None:
+        yield
+        return
+    from repro_torch.models import attention
+
+    def ranged(fn):
+        def call(*args):
+            with torch.profiler.record_function("mla"):
+                return fn(*args)
+        return call
+
+    with _planted(attention, mla_prefill=ranged(attention.mla_prefill),
+                  mla_decode=ranged(attention.mla_decode)):
+        yield
+
+
 def _profile(torch, name, fn, cfg=None):
     """Run ``fn`` once under torch.profiler; log wall time, the device's busy
     and idle shares, and the kernels that took the most device time; on a
-    MoE path (``cfg.moe``) also the device time by part (``_moe_split``).
-    The profiler slows the host, so the idle share is an upper bound."""
+    MoE path (``cfg.moe``) also the device time by part (``_moe_split``;
+    on an MLA path with the MLA blocks' share).  The profiler slows the
+    host, so the idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     moe = cfg is not None and cfg.moe is not None
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=moe) as prof:
+    with _mla_ranges(torch, cfg), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                          record_shapes=moe) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies); CPU ops carry their kernels'
     # device time as well and would count it twice, and so do the device-side
-    # spans of record_function ranges (ops' "plain backward: <kernel>")
+    # spans of record_function ranges (ops' "plain backward: <kernel>", "mla")
     cpu = torch.autograd.DeviceType.CPU
     rows = [e for e in prof.key_averages()
             if e.device_type != cpu and e.self_device_time_total > 0
-            and not e.key.startswith("plain backward")]
+            and not e.key.startswith("plain backward") and e.key != "mla"]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     if busy_ms == 0:
         log(f"[profile] {name}: wall {wall_ms:.2f} ms; the profiler saw no device time "
@@ -1601,10 +1721,17 @@ def _moe_split(prof, cfg, plain_bwd):
     (the gathers and their ``index_add_`` backward, the slot table's
     ``scatter_``, the combine's weighted sum: ``bmm`` with a unit dimension)
     and attention (the flash and decode kernels and ops' plain attention
-    backward).  Routing, norms, projections and the head are the rest."""
+    backward).  On an MLA path also the MLA blocks whole (projections,
+    latent attention, the flash kernel: the "mla" ranges of
+    ``_mla_ranges``), attention among them.  Routing, norms, the other
+    projections and the head are the rest."""
     from torch.autograd import DeviceType
 
     parts = {"moe expert products": 0.0, "moe dispatch/combine": 0.0, "attention": 0.0}
+    if cfg.mla is not None:
+        parts["mla (attention among it)"] = sum(
+            e.device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.key == "mla") / 1e3
     for e in prof.key_averages(group_by_input_shape=True):
         if e.device_type != DeviceType.CPU:
             if re.search(r"\b(fa_fwd|decode)_(bf16|f32)\b", e.key):  # the ctypes-launched kernels
@@ -1664,11 +1791,12 @@ def _dropping(fn_cls, index):
     return Dropped
 
 
-def _grad_case(torch, ops, name, fwd, args, tol, fn_cls, drop):
+def _grad_case(torch, ops, name, fwd, args, tol, fn_cls, drop, label=""):
     """Kernel forward + plain backward (ops' Function, ``impl="cuda"``)
     against plain autograd (``impl="ref"``), end to end through a loss that
     reads every output; then the same with the backward dropping input
-    ``drop``'s gradient, which the limit must reject."""
+    ``drop``'s gradient, which the limit must reject.  ``label`` tells
+    the log lines of two cases of one kernel apart."""
     def grads(impl):
         xs = [a.detach().requires_grad_() for a in args]
         outs = fwd(*xs, impl=impl)
@@ -1681,12 +1809,12 @@ def _grad_case(torch, ops, name, fwd, args, tol, fn_cls, drop):
     if ops.launch_counts()[name] != before + 1:
         raise AssertionError(f"{name}: the Function's forward did not launch the kernel")
     want = grads("ref")
-    errs = [assert_close(f"grad {name} fp32 d{i}", g, w, tol)
+    errs = [assert_close(f"grad {name}{label} fp32 d{i}", g, w, tol)
             for i, (g, w) in enumerate(zip(got, want))]
     with _planted(ops, **{fn_cls.__name__: _dropping(fn_cls, drop)}):
         faulty = grads("cuda")
     err, bad, _ = beyond(faulty[drop], want[drop], tol, tol)
-    log(f"[grads] control, {name} backward drops d{drop}: {bad} elements beyond "
+    log(f"[grads] control, {name}{label} backward drops d{drop}: {bad} elements beyond "
         f"{tol:g} (max_abs_err {err:.3e}): {'rejected' if bad else 'NOT rejected'}")
     if not bad:
         raise AssertionError(f"{name}: a backward that drops d{drop} is not rejected")
@@ -1694,7 +1822,10 @@ def _grad_case(torch, ops, name, fwd, args, tol, fn_cls, drop):
 
 
 def phase_grads(torch):
-    """The three autograd Functions on the card in fp32, at small shapes."""
+    """The three autograd Functions on the card in fp32, at small shapes;
+    the attention Function also as MLA calls it (D = 192, V zero-padded
+    from 128 and sliced back, scale 192^-0.5)."""
+    import torch.nn.functional as F
     from repro_torch.kernels import ops
 
     # the reference's custom-VJP tests are at (1, 2, 64, 32) and (1, 64, 2, 8):
@@ -1705,9 +1836,17 @@ def phase_grads(torch):
     q, k, v = _prefill_inputs(torch, gen, 1, 4, 2, 128, 128, 64, f32)
     x, dt, A, Bm, Cm, _ = _mamba_inputs(torch, gen, 1, 256, 2, 16, 1, 16, f32)
     r, kk, vv, w, u, _ = _rwkv_inputs(torch, gen, 1, 128, 2, 16, f32)
+    qm, km, vm = _prefill_inputs(torch, gen, 1, 4, 4, 128, 128, 192, f32)
+
+    def mla_attention(q, k, v, impl):
+        return ops.attention(q, k, F.pad(v, (0, 64)), True, 192 ** -0.5, impl=impl)[..., :128]
+
     out = {
         "attention": _grad_case(torch, ops, "flash_attention_fwd", ops.attention, (q, k, v),
                                 GRAD_TOL["attention"], ops._AttentionFn, 1),
+        "attention_mla": _grad_case(torch, ops, "flash_attention_fwd", mla_attention,
+                                    (qm, km, vm[..., :128]), GRAD_TOL["attention"],
+                                    ops._AttentionFn, 1, " (MLA: D = 192, V padded from 128)"),
         "mamba2": _grad_case(torch, ops, "mamba2_scan", ops.mamba2, (x, dt, A, Bm, Cm),
                              GRAD_TOL["mamba2"], ops._Mamba2Fn, 0),
         "rwkv6": _grad_case(torch, ops, "rwkv6_scan", ops.rwkv6, (r, kk, vv, w, u),
@@ -2449,6 +2588,8 @@ def main() -> int:
         row["launches_trainer"] = trainer["launches"][row["name"]]
         row["grad_parity"] = grads.get({"flash_attention_fwd": "attention", "mamba2_scan": "mamba2",
                                         "rwkv6_scan": "rwkv6"}.get(row["name"]))
+        if row["name"] == "flash_attention_fwd":
+            row["grad_parity_mla_d192"] = grads["attention_mla"]
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

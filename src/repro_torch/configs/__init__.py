@@ -40,9 +40,9 @@ ALIASES = {
 }
 
 PORTED = ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b", "gemma_2b", "gemma_7b",
-          "command_r_35b", "qwen2_vl_7b", "granite_moe_3b_a800m")
-# what models/config.check_supported would refuse in each remaining arch
-UNPORTED = {"deepseek_v2_236b": "mla", "whisper_tiny": "enc_dec, mlp_act=gelu_mlp"}
+          "command_r_35b", "qwen2_vl_7b", "granite_moe_3b_a800m", "deepseek_v2_236b")
+# what models/config.check_supported would refuse in the remaining arch
+UNPORTED = {"whisper_tiny": "enc_dec, mlp_act=gelu_mlp"}
 
 
 def resolve(arch: str) -> str:

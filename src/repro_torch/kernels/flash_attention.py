@@ -20,7 +20,7 @@ from . import build, ref
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (64, 128, 192, 256)
 _DTYPES = (torch.bfloat16, torch.float32)
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 # q, k, v, o, is_bf16, B, H, KV, S, T, D, causal, scale, 12 strides, stream

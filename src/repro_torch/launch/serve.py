@@ -4,7 +4,8 @@
         [--smoke] [--batch 4] [--prompt-len 32] [--gen 16] [--device cuda]
 
 ``--arch`` takes the ported ids: tinyllama-1.1b, zamba2-1.2b, rwkv6-7b,
-gemma-2b, gemma-7b, command-r-35b, qwen2-vl-7b, granite-moe-3b-a800m.  A ``visual_stub`` config
+gemma-2b, gemma-7b, command-r-35b, qwen2-vl-7b, granite-moe-3b-a800m,
+deepseek-v2-236b (whose full 60 layers do not fit one card).  A ``visual_stub`` config
 (qwen2-vl-7b) gets seeded random patch embeddings (batch, 8, d_model) in
 place of a vision frontend, spliced over the first 8 prompt slots.  On
 the CPU the SSM archs follow the reference's chunked scans, which need the
@@ -51,7 +52,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     help="tinyllama-1.1b, zamba2-1.2b, rwkv6-7b, gemma-2b, gemma-7b, "
-                         "command-r-35b, qwen2-vl-7b or granite-moe-3b-a800m")
+                         "command-r-35b, qwen2-vl-7b, granite-moe-3b-a800m or deepseek-v2-236b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

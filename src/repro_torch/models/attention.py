@@ -1,5 +1,6 @@
-"""GQA/MQA attention block with RoPE or M-RoPE and optional qkv biases,
-twin of the reference's ``attn_*``.
+"""Attention blocks, twins of the reference's: GQA/MQA (``attn_*``) with
+RoPE or M-RoPE and optional qkv biases, and DeepSeek-V2's multi-head
+latent attention (``mla_*``).
 
 Activations are (B,S,H,hd); the kernels take (B,H,S,hd), which here is a
 transposed view, not a copy.  The KV cache is stored (B,T,KV,hd) as in the
@@ -10,7 +11,14 @@ the port writes the cache in place and returns the same dict.  Positions
 must lie inside the cache (``pos < max_len``), which the generate loop
 guarantees; out-of-range writes raise instead of being clamped.
 
-MLA is not ported yet (``config.check_supported`` refuses it).
+MLA caches only the normalised latent ``ckv`` (B,T,kv_lora) and the shared
+rope key ``kpe`` (B,T,qk_rope).  Prefill expands them to per-head keys and
+values and runs the flash kernel at head_dim qk_nope + qk_rope, V
+zero-padded to that width and sliced back, as the reference.  Decode stays
+in the latent space (``k_up`` absorbed into the query, ``v_up`` applied to
+the attended latent), plain torch as in the reference.  The reference's
+prefill projects the prompt twice, once for the cache and once inside
+``mla_apply``; here once, for both: the same values.
 """
 
 from __future__ import annotations
@@ -18,9 +26,10 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from .common import apply_mrope, apply_rope, dense_init
+from .common import apply_mrope, apply_norm, apply_rope, dense_init, norm_init
 from .config import ModelConfig
 
 Tensors = Dict[str, torch.Tensor]
@@ -114,4 +123,116 @@ def attn_decode(cfg: ModelConfig, p: Tensors, x: torch.Tensor, pos: torch.Tensor
     o = ops.decode_attention(q[:, 0], cache["k"].transpose(1, 2),
                              cache["v"].transpose(1, 2), pos + 1,
                              impl=cfg.attn_impl)
+    return _out(o[:, None], p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+def mla_init(cfg: ModelConfig, gen: torch.Generator) -> Tensors:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    dt = cfg.param_tdtype()
+    dev = gen.device
+    return {
+        "q_down": dense_init(gen, D, (m.q_lora,), dt),
+        "q_norm": norm_init(cfg, dev, m.q_lora),
+        "q_up": dense_init(gen, m.q_lora, (H, m.qk_nope + m.qk_rope), dt),
+        "kv_down": dense_init(gen, D, (m.kv_lora + m.qk_rope,), dt),
+        "kv_norm": norm_init(cfg, dev, m.kv_lora),
+        "k_up": dense_init(gen, m.kv_lora, (H, m.qk_nope), dt),
+        "v_up": dense_init(gen, m.kv_lora, (H, m.v_head), dt),
+        "wo": dense_init(gen, H * m.v_head, (D,), dt).reshape(H, m.v_head, D),
+    }
+
+
+def _mla_qkv(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
+             positions: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """x (B,S,D) -> q_nope (B,S,H,qk_nope), q_pe (B,S,H,qk_rope), the
+    normalised latent ckv (B,S,kv_lora) and the shared rope key k_pe
+    (B,S,qk_rope); positions (B,S)."""
+    m = cfg.mla
+    cq = apply_norm(cfg, p["q_norm"], x @ p["q_down"].to(x.dtype))
+    q = _proj(cq, p["q_up"])
+    ckv_full = x @ p["kv_down"].to(x.dtype)
+    ckv = apply_norm(cfg, p["kv_norm"], ckv_full[..., :m.kv_lora])
+    q_pe = apply_rope(q[..., m.qk_nope:], positions, cfg.rope_theta)
+    k_pe = apply_rope(ckv_full[..., None, m.kv_lora:], positions, cfg.rope_theta)[:, :, 0]
+    return q[..., :m.qk_nope], q_pe, ckv, k_pe
+
+
+def _mla_attend(cfg: ModelConfig, p: Tensors, q_nope: torch.Tensor, q_pe: torch.Tensor,
+                ckv: torch.Tensor, k_pe: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Per-head keys and values from the latent, attention at head_dim
+    qk_nope + qk_rope (V zero-padded to it, sliced back), then ``wo``."""
+    m = cfg.mla
+    k_nope = _proj(ckv, p["k_up"])
+    v = _proj(ckv, p["v_up"])
+    q = torch.cat([q_nope, q_pe], -1)
+    k = torch.cat([k_nope, k_pe[:, :, None].expand(*k_nope.shape[:3], m.qk_rope)], -1)
+    v = F.pad(v, (0, q.shape[-1] - m.v_head))
+    o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                      scale=(m.qk_nope + m.qk_rope) ** -0.5, impl=cfg.attn_impl)
+    return _out(o.transpose(1, 2)[..., :m.v_head], p["wo"])
+
+
+def mla_apply(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
+              positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """x: (B,S,D) -> (B,S,D), full-sequence causal attention."""
+    return _mla_attend(cfg, p, *_mla_qkv(cfg, p, x, positions), causal)
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device: torch.device) -> Tensors:
+    """The latent and the shared rope key only: kv_lora + qk_rope values a
+    token instead of 2 * H * head_dim."""
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora), dtype=dtype, device=device),
+            "kpe": torch.zeros((batch, max_len, m.qk_rope), dtype=dtype, device=device)}
+
+
+def mla_prefill(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
+                positions: torch.Tensor,
+                cache: Tensors) -> Tuple[torch.Tensor, Tensors]:
+    """Prompt of S tokens: write cache[:, :S] in place, attend causally."""
+    q_nope, q_pe, ckv, k_pe = _mla_qkv(cfg, p, x, positions)
+    S = x.shape[1]
+    cache["ckv"][:, :S] = ckv
+    cache["kpe"][:, :S] = k_pe
+    return _mla_attend(cfg, p, q_nope, q_pe, ckv, k_pe, True), cache
+
+
+def mla_latent_attention(q_lat: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
+                         kpe: torch.Tensor, length: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """Decode attention in the latent space: q_lat (B,H,kv_lora) and q_pe
+    (B,H,qk_rope) against the cache ckv (B,T,kv_lora) and kpe (B,T,qk_rope),
+    keys t < length[b] visible; -> the attended latent (B,H,kv_lora).  The
+    scores are summed and scaled in the compute dtype, masked and
+    normalised in fp32, as the reference."""
+    logits = (torch.einsum("bhl,btl->bht", q_lat, ckv)
+              + torch.einsum("bhk,btk->bht", q_pe, kpe)) * scale
+    mask = torch.arange(ckv.shape[1], device=ckv.device)[None, None, :] \
+        < length[:, None, None]
+    logits = torch.where(mask, logits.float(), -1e30)
+    w = torch.softmax(logits, dim=-1).to(q_lat.dtype)
+    return torch.einsum("bht,btl->bhl", w, ckv)
+
+
+def mla_decode(cfg: ModelConfig, p: Tensors, x: torch.Tensor, pos: torch.Tensor,
+               cache: Tensors) -> Tuple[torch.Tensor, Tensors]:
+    """x: (B,1,D); pos: (B,) int32.  The query is projected into the latent
+    space (``k_up`` absorbed), so attention reads the (kv_lora + qk_rope)
+    cache directly: the MLA serving trick."""
+    m = cfg.mla
+    B = x.shape[0]
+    q_nope, q_pe, ckv, k_pe = _mla_qkv(cfg, p, x, pos[:, None])
+    rows = torch.arange(B, device=x.device)
+    idx = pos.long()
+    cache["ckv"][rows, idx] = ckv[:, 0]
+    cache["kpe"][rows, idx] = k_pe[:, 0]
+    q_lat = torch.einsum("bhk,lhk->bhl", q_nope[:, 0], p["k_up"].to(x.dtype))
+    ctx = mla_latent_attention(q_lat, q_pe[:, 0], cache["ckv"], cache["kpe"], pos + 1,
+                               (m.qk_nope + m.qk_rope) ** -0.5)
+    o = torch.einsum("bhl,lhk->bhk", ctx, p["v_up"].to(x.dtype))
     return _out(o[:, None], p["wo"]), cache

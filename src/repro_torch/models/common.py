@@ -24,10 +24,12 @@ from .config import ModelConfig
 # ---------------------------------------------------------------------------
 def dense_init(gen: torch.Generator, in_dim: int, out_shape: Sequence[int],
                dtype: torch.dtype) -> torch.Tensor:
-    """Truncated-normal fan-in init for an (in_dim, *out) weight."""
+    """Truncated-normal fan-in init for an (in_dim, *out) weight.  Scaled in
+    place: one fp32 copy of the weight at a time (5 GB for one of
+    deepseek-v2's expert stacks)."""
     w = torch.empty((in_dim, *out_shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+    return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,

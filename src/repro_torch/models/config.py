@@ -136,26 +136,29 @@ class ModelConfig:
         return _TORCH_DTYPES[self.compute_dtype]
 
 
-_PORTED_BLOCKS = ("attn", "mamba2", "shared_attn", "rwkv6")
+_PORTED_BLOCKS = ("attn", "mla", "mamba2", "shared_attn", "rwkv6")
+# the sub-config each block kind reads
+_BLOCK_CONFIGS = {"mla": "mla", "mamba2": "mamba", "rwkv6": "rwkv"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for any feature the port lacks so far.
+    """Raise ``NotImplementedError`` for any feature the port lacks so far,
+    and ``ValueError`` for a block kind without its sub-config.
 
     The port covers the dense GQA/MQA decoders (RMSNorm or LayerNorm, the
     unit-offset norm, scaled and tied embeddings, qkv biases, parallel
     blocks, standard RoPE or M-RoPE with a stubbed visual frontend, gated
-    SiLU or GELU MLPs, a softcapped head), mixture-of-experts FFNs (routed
-    and shared experts, leading dense layers), Mamba2 blocks with a shared
-    attention block (Zamba2) and RWKV6 blocks, under either remat policy
+    SiLU or GELU MLPs, a softcapped head), multi-head latent attention
+    (DeepSeek-V2's MLA), mixture-of-experts FFNs (routed and shared
+    experts, leading dense layers), Mamba2 blocks with a shared attention
+    block (Zamba2) and RWKV6 blocks, under either remat policy
     (``"dots"``; any other name means nothing saved, as in the reference).
-    MLA, the encoder-decoder and the plain GELU MLP wait for a later slice,
-    and refusing them here keeps a config from silently running a
+    The encoder-decoder and the plain GELU MLP (Whisper) wait for a later
+    slice, and refusing them here keeps a config from silently running a
     different model.
     """
     unported = sorted(set(cfg.blocks) - set(_PORTED_BLOCKS))
     missing = [name for name, on in (
-        ("mla", cfg.mla is not None),
         ("enc_dec", cfg.enc_dec is not None),
         ("block kinds " + ",".join(unported), bool(unported)),
         ("rope_type=" + cfg.rope_type, cfg.rope_type not in ("standard", "mrope", "none")),
@@ -165,6 +168,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {', '.join(missing)}")
-    for kind, sub in (("mamba2", cfg.mamba), ("rwkv6", cfg.rwkv)):
-        if kind in cfg.blocks and sub is None:
-            raise ValueError(f"{cfg.name}: {kind} blocks need cfg.{'mamba' if kind == 'mamba2' else 'rwkv'}")
+    for kind, sub in _BLOCK_CONFIGS.items():
+        if kind in cfg.blocks and getattr(cfg, sub) is None:
+            raise ValueError(f"{cfg.name}: {kind} blocks need cfg.{sub}")

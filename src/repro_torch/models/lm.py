@@ -5,7 +5,7 @@ Twin of the reference's ``models/lm.py`` for the blocks ported so far:
 Qwen2-VL: sequential or parallel attention and MLP, tied or untied head,
 visual embeddings spliced over the first token slots) or a ``moe`` FFN
 (Granite-MoE; leading ``dense`` layers of width ``moe.dense_d_ff``),
-``mamba2`` blocks with a ``shared_attn`` block (Zamba2), and ``rwkv6``
+``mla`` blocks with the same FFN kinds (DeepSeek-V2), ``mamba2`` blocks with a ``shared_attn`` block (Zamba2), and ``rwkv6``
 blocks.  Layers are grouped into runs of identical (block kind, ffn kind);
 each ``shared_attn`` stands alone.  Each run's parameters are stacked with
 a leading layer axis, and a
@@ -60,7 +60,7 @@ Tree = Dict[str, Any]
 
 @dataclass(frozen=True)
 class LayerGroup:
-    kind: str      # attn | mamba2 | rwkv6 | shared_attn
+    kind: str      # attn | mla | mamba2 | rwkv6 | shared_attn
     ffn: str       # moe | mlp | dense | none
     start: int     # absolute index of first layer in the group
     count: int
@@ -155,9 +155,9 @@ def _ffn_init(cfg: ModelConfig, ffn: str, gen: torch.Generator) -> Tree:
 
 def _block_init(cfg: ModelConfig, kind: str, ffn: str, gen: torch.Generator) -> Tree:
     dev = gen.device
-    if kind == "attn":
-        p = {"ln1": norm_init(cfg, dev), "attn": attn.attn_init(cfg, gen),
-             "ffn": _ffn_init(cfg, ffn, gen)}
+    if kind in ("attn", "mla"):
+        mix = attn.attn_init(cfg, gen) if kind == "attn" else attn.mla_init(cfg, gen)
+        p = {"ln1": norm_init(cfg, dev), "attn": mix, "ffn": _ffn_init(cfg, ffn, gen)}
         if not cfg.parallel_block:
             p["ln2"] = norm_init(cfg, dev)
         return p
@@ -234,9 +234,9 @@ def _head(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
 def _apply_layer(cfg: ModelConfig, kind: str, ffn: str, lp: Tree, x: torch.Tensor,
                  positions: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer of the training forward: (new x, aux loss or None)."""
-    if kind == "attn":
-        return _attn_layer(cfg, ffn, lp, x,
-                           lambda h: attn.attn_apply(cfg, lp["attn"], h, positions), False)
+    if kind in ("attn", "mla"):
+        fn = attn.attn_apply if kind == "attn" else attn.mla_apply
+        return _attn_layer(cfg, ffn, lp, x, lambda h: fn(cfg, lp["attn"], h, positions), False)
     if kind == "mamba2":
         return x + ssm.mamba2_apply(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x)), None
     if kind == "rwkv6":
@@ -300,6 +300,8 @@ def _cache_one(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                dt: torch.dtype, device: torch.device) -> Tree:
     if kind in ("attn", "shared_attn"):
         return attn.attn_init_cache(cfg, batch, max_len, dt, device)
+    if kind == "mla":
+        return attn.mla_init_cache(cfg, batch, max_len, dt, device)
     if kind == "mamba2":
         return ssm.mamba2_init_state(cfg, batch, dt, device)
     if kind == "rwkv6":
@@ -330,9 +332,10 @@ def _write(cache: Tree, state: Tree) -> None:
 def _prefill_layer(cfg: ModelConfig, kind: str, ffn: str, lp: Tree, x: torch.Tensor,
                    positions: torch.Tensor, c: Tree) -> torch.Tensor:
     """One layer over the prompt; writes its cache ``c`` in place."""
-    if kind == "attn":
-        return _attn_layer(cfg, ffn, lp, x, lambda h: attn.attn_prefill(
-            cfg, lp["attn"], h, positions, c)[0], True)[0]
+    if kind in ("attn", "mla"):
+        fn = attn.attn_prefill if kind == "attn" else attn.mla_prefill
+        return _attn_layer(cfg, ffn, lp, x, lambda h: fn(cfg, lp["attn"], h, positions, c)[0],
+                           True)[0]
     if kind == "mamba2":
         out, state = ssm.mamba2_prefill(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x))
         _write(c, state)
@@ -349,9 +352,10 @@ def _prefill_layer(cfg: ModelConfig, kind: str, ffn: str, lp: Tree, x: torch.Ten
 def _decode_layer(cfg: ModelConfig, kind: str, ffn: str, lp: Tree, x: torch.Tensor,
                   pos: torch.Tensor, c: Tree) -> torch.Tensor:
     """One layer for one token; writes its cache ``c`` in place."""
-    if kind == "attn":
-        return _attn_layer(cfg, ffn, lp, x, lambda h: attn.attn_decode(
-            cfg, lp["attn"], h, pos, c)[0], True)[0]
+    if kind in ("attn", "mla"):
+        fn = attn.attn_decode if kind == "attn" else attn.mla_decode
+        return _attn_layer(cfg, ffn, lp, x, lambda h: fn(cfg, lp["attn"], h, pos, c)[0],
+                           True)[0]
     if kind == "mamba2":
         out, state = ssm.mamba2_decode(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x), c)
         _write(c, state)

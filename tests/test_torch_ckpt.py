@@ -234,11 +234,10 @@ def test_tied_train_state_restores_across_packages(tmp_path, writer):
     tm.fa.shutdown()
 
 
-@pytest.mark.parametrize("writer", ["jax", "torch"])
-def test_moe_train_state_restores_across_packages(tmp_path, writer):
-    """A granite-moe smoke train state with bf16 params, whose router stays
-    fp32 beside the bf16 experts, saved by one package and restored by the
-    other, bit for bit, its leaf names and dtypes the same on both sides."""
+def _restore_across_packages(tmp_path, writer, arch, step):
+    """A smoke train state of ``arch`` with bf16 params, saved at ``step``
+    by one package and restored by the other, bit for bit, its leaf names
+    the same on both sides; (the port's state, the restored state)."""
     from dataclasses import replace
 
     from repro.configs import get_config as jget_config
@@ -251,7 +250,6 @@ def test_moe_train_state_restores_across_packages(tmp_path, writer):
     from repro_torch.optim import AdamWConfig
 
     bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
-    arch = "granite-moe-3b-a800m"
     jparams = jbuild_model(replace(jget_config(arch, smoke=True), **bf16)).init(
         jax.random.PRNGKey(1))
     jstate = {"params": jparams, "opt": jadamw_init(JAdamWConfig(), jparams)}
@@ -259,26 +257,56 @@ def test_moe_train_state_restores_across_packages(tmp_path, writer):
                               AdamWConfig(), torch.Generator().manual_seed(2))
     assert bridge.leaf_names(tstate) == [
         jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_leaves_with_path(jstate)]
-    ffn = tstate["params"]["layers"][0]["ffn"]
-    assert ffn["router"].dtype == torch.float32 and ffn["wi"].dtype == torch.bfloat16
     jm = JManager(JOS(), str(tmp_path), **MGR)
     tm = CheckpointManager(OSDevice(), str(tmp_path), **MGR)
     if writer == "jax":
-        jm.save(5, jstate)
+        jm.save(step, jstate)
         want = jax.tree.map(np.asarray, jstate)
-        step, got, _ = tm.restore_latest(like=tstate)
-        ffn = got["params"]["layers"][0]["ffn"]
-        assert ffn["router"].dtype == torch.float32 and ffn["wo"].dtype == torch.bfloat16
+        got_step, got, _ = tm.restore_latest(like=tstate)
     else:
-        tm.save(5, tstate)
+        tm.save(step, tstate)
         want = bridge.params_to_numpy(tstate)
-        step, got, _ = jm.restore_latest(like=jstate)
-        ffn = got["params"]["layers"][0]["ffn"]
-        assert ffn["router"].dtype == jnp.float32 and ffn["wo"].dtype == jnp.bfloat16
-    assert step == 5
+        got_step, got, _ = jm.restore_latest(like=jstate)
+    assert got_step == step
     _assert_same_bits(got, want)
     jm.fa.shutdown()
     tm.fa.shutdown()
+    return tstate, got
+
+
+def _dtypes(*leaves):
+    """The dtype names of restored leaves, whichever package restored them."""
+    return [str(t.dtype).split(".")[-1] for t in leaves]
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_moe_train_state_restores_across_packages(tmp_path, writer):
+    """A granite-moe smoke train state with bf16 params, whose router stays
+    fp32 beside the bf16 experts, saved by one package and restored by the
+    other, bit for bit, its leaf names and dtypes the same on both sides."""
+    tstate, got = _restore_across_packages(tmp_path, writer, "granite-moe-3b-a800m", 5)
+    ffn = tstate["params"]["layers"][0]["ffn"]
+    assert ffn["router"].dtype == torch.float32 and ffn["wi"].dtype == torch.bfloat16
+    ffn = got["params"]["layers"][0]["ffn"]
+    assert _dtypes(ffn["router"], ffn["wo"]) == ["float32", "bfloat16"]
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_mla_train_state_restores_across_packages(tmp_path, writer):
+    """A deepseek-v2 smoke train state with bf16 params (MLA projections and
+    norms in both layers, a dense first layer, then routed experts with an
+    fp32 router and a shared expert), saved by one package and restored by
+    the other, bit for bit, its leaf names and dtypes the same on both
+    sides."""
+    tstate, got = _restore_across_packages(tmp_path, writer, "deepseek-v2-236b", 7)
+    mla = tstate["params"]["layers"][1]["attn"]
+    assert sorted(mla) == ["k_up", "kv_down", "kv_norm", "q_down", "q_norm", "q_up", "v_up",
+                           "wo"]
+    for layers in (tstate["params"]["layers"], got["params"]["layers"]):
+        assert _dtypes(layers[0]["attn"]["q_up"], layers[0]["ffn"]["wi"],
+                       layers[1]["attn"]["kv_norm"]["scale"], layers[1]["ffn"]["router"],
+                       layers[1]["ffn"]["shared"]["wo"]) == \
+            ["bfloat16", "bfloat16", "bfloat16", "float32", "bfloat16"]
 
 
 class _GatedMem(MemDevice):

@@ -43,14 +43,15 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
 @pytest.mark.cuda
 def test_cuda_flash_attention_tile_edges_on_the_card():
     """The flash kernel at its tile edges (128 query rows, 64 keys a tile),
-    with S > T (rows that see no key are zeros) and at D = 128 with
-    KV = H, in bf16 and fp32, against its plain version."""
+    with S > T (rows that see no key are zeros) and at D = 128 and 192
+    with KV = H, in bf16 and fp32, against its plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
     g = torch.Generator(device="cuda").manual_seed(1)
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
         for B, H, KV, S, T, D in ((2, 4, 2, 129, 129, 64), (2, 4, 2, 100, 60, 64),
-                                  (1, 4, 4, 129, 129, 128)):
+                                  (1, 4, 4, 129, 129, 128), (1, 4, 4, 129, 129, 192),
+                                  (1, 4, 4, 130, 257, 192)):
             q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype).transpose(1, 2)
             k = torch.randn(B, T, KV, D, generator=g, device="cuda").to(dtype).transpose(1, 2)
             v = torch.randn(B, T, KV, D, generator=g, device="cuda").to(dtype).transpose(1, 2)
@@ -61,6 +62,30 @@ def test_cuda_flash_attention_tile_edges_on_the_card():
                                        atol=tol, rtol=tol)
             if S > T:
                 assert got[:, :, :S - T].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_mla_call_on_the_card():
+    """MLA's prefill call at a small shape: head_dim 192 (qk_nope 128 +
+    qk_rope 64), V 128 wide zero-padded to 192, scale 192^-0.5, causal and
+    full, in bf16 and fp32, against the plain version; the padded columns
+    of the output stay zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        for causal in (True, False):
+            q, k = (torch.randn(2, 129, 4, 192, generator=g, device="cuda").to(dtype)
+                    .transpose(1, 2) for _ in range(2))
+            v = torch.nn.functional.pad(torch.randn(2, 129, 4, 128, generator=g,
+                                                    device="cuda").to(dtype), (0, 64))
+            v = v.transpose(1, 2)
+            before = fa.launches
+            got = fa.flash_attention_fwd(q, k, v, causal, 192 ** -0.5)
+            assert fa.launches == before + 1
+            assert got[..., 128:].abs().max().item() == 0.0
+            torch.testing.assert_close(got, fa.attention_plain(q, k, v, causal, 192 ** -0.5),
+                                       atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -263,7 +288,8 @@ def test_cuda_mamba2_scan_edges_on_the_card():
 @pytest.mark.cuda
 def test_cuda_train_steps_match_the_plain_path_on_the_card():
     """Per ported architecture at smoke size in fp32 (attention head_dim 64,
-    which the flash kernel takes): two train steps on the kernel path
+    which the flash kernel takes; deepseek-v2's MLA at qk_nope 128 +
+    qk_rope 64 = 192): two train steps on the kernel path
     against the plain path from the same state, every state leaf at 1e-4;
     each step launches each kernel once per layer.  Then the three autograd
     Functions (kernel forward, plain backward) against plain autograd at
@@ -277,6 +303,7 @@ def test_cuda_train_steps_match_the_plain_path_on_the_card():
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_train_state, make_train_step
     from repro_torch.models import build_model
+    from repro_torch.models.config import MLAConfig
     from repro_torch.optim import AdamWConfig
     from repro_torch.tree import tree_leaves
 
@@ -284,7 +311,9 @@ def test_cuda_train_steps_match_the_plain_path_on_the_card():
     # tests/test_torch_train.py)
     opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10, eps=1e-3)
     wide = {"tinyllama-1.1b": dict(n_heads=2, n_kv_heads=1), "zamba2-1.2b": dict(head_dim=64),
-            "rwkv6-7b": {}}
+            "rwkv6-7b": {},
+            "deepseek-v2-236b": dict(mla=MLAConfig(q_lora=64, kv_lora=32, qk_nope=128,
+                                                   qk_rope=64, v_head=16))}
     for arch, kw in wide.items():
         cfg = replace(get_config(arch, smoke=True), **kw)
         g = torch.Generator(device="cuda").manual_seed(5)
@@ -292,9 +321,10 @@ def test_cuda_train_steps_match_the_plain_path_on_the_card():
                                             device="cuda"),
                     "labels": torch.randint(0, cfg.vocab_size, (2, 128), generator=g,
                                             device="cuda")} for _ in range(2)]
-        n = {k: sum(b == k for b in cfg.blocks) for k in ("attn", "shared_attn", "mamba2",
-                                                         "rwkv6")}
-        want = {"flash_attention_fwd": n["attn"] + n["shared_attn"], "flash_decode": 0,
+        n = {k: sum(b == k for b in cfg.blocks) for k in ("attn", "shared_attn", "mla",
+                                                         "mamba2", "rwkv6")}
+        want = {"flash_attention_fwd": n["attn"] + n["shared_attn"] + n["mla"],
+                "flash_decode": 0,
                 "mamba2_scan": n["mamba2"], "rwkv6_scan": n["rwkv6"]}
         states = []
         for impl in ("cuda", "ref"):

@@ -112,6 +112,8 @@ def within_fp32_bound(got, exact, bound):
     (2, 8, 2, 128, 256, 64, True),     # GQA + cross lengths
     (1, 2, 1, 256, 256, 128, False),   # MQA, non-causal
     (1, 4, 2, 128, 128, 256, True),    # gemma-size head_dim
+    (1, 4, 4, 128, 128, 192, True),    # MLA's qk_nope + qk_rope, MHA
+    (1, 4, 4, 128, 128, 192, False),
 ])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_flash_attention_matches_pallas_interpret(B, H, KV, S, T, D, causal, dtype):
@@ -132,8 +134,9 @@ def test_flash_attention_matches_pallas_interpret(B, H, KV, S, T, D, causal, dty
     for out in (*outs, want):
         within_fp32_bound(out, exact, bound)
     # and the port against the JAX kernel at 10x the largest difference the
-    # four shapes read (3.3e-7 to 5.1e-7, the same bits for 1 to 8 torch
-    # threads and under xdist): far inside the bound, so a repeat of a
+    # first four shapes read (3.3e-7 to 5.1e-7, the same bits for 1 to 8
+    # torch threads and under xdist; the two at D = 192 3.0e-7 and 4.2e-7):
+    # far inside the bound, so a repeat of a
     # one-off 2.98e-5 reading fails here and gets looked into
     for out in outs:
         close(out, want, FP32_SPREAD_TOL)
@@ -142,6 +145,7 @@ def test_flash_attention_matches_pallas_interpret(B, H, KV, S, T, D, causal, dty
 @pytest.mark.parametrize("B,H,KV,S,T,D", [
     (2, 4, 2, 130, 257, 64),    # S != T, neither a multiple of a block
     (1, 4, 1, 300, 300, 128),
+    (1, 4, 4, 130, 257, 192),
 ])
 def test_flash_attention_ragged_matches_jax_blockwise(B, H, KV, S, T, D):
     rng = np.random.default_rng(1)
@@ -150,6 +154,39 @@ def test_flash_attention_ragged_matches_jax_blockwise(B, H, KV, S, T, D):
     close(fa.flash_attention_fwd(q, k, v, True), want, 2e-5)
     close(ref.attention_blockwise(q, k, v, True, block_q=128, block_k=128), want, 2e-5)
     close(ref.attention_naive(q, k, v, True), jref.attention_naive(jq, jk, jv, True), 2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_attention_mla_call_matches_pallas_interpret(causal, dtype):
+    """MLA's prefill call: q and k at head_dim qk_nope 128 + qk_rope 64, V
+    128 wide zero-padded to 192, scale 192^-0.5 (the reference's
+    ``mla_apply``).  The padded columns of the output stay zeros."""
+    rng = np.random.default_rng(8)
+    B, H, S, D, DV = 1, 4, 128, 192, 128
+    (jq, q), (jk, k), (jv, v) = rnd(rng, (B, H, S, D), dtype), rnd(rng, (B, H, S, D), dtype), \
+        rnd(rng, (B, H, S, DV), dtype)
+    jv = jnp.pad(jv, ((0, 0), (0, 0), (0, 0), (0, D - DV)))
+    v = torch.nn.functional.pad(v, (0, D - DV))
+    scale = D ** -0.5
+    want = j_flash_attention_fwd(jq, jk, jv, causal, scale, block_q=64, block_k=64,
+                                 interpret=True)
+    got = fa.flash_attention_fwd(q, k, v, causal, scale)
+    assert torch.count_nonzero(got[..., DV:]) == 0
+    close(got, want, TOL[dtype])
+    close(ops.attention(q, k, v, causal, scale, impl="cuda"), want, TOL[dtype])
+
+
+@pytest.mark.parametrize("D,taken", [(192, True), (96, False), (160, False)])
+def test_kernel_head_dims(D, taken):
+    """The wrapper's check of what the CUDA kernel takes, on CPU tensors:
+    head_dim 192 (MLA) joins 64, 128 and 256; other widths still raise."""
+    q = torch.zeros(1, 2, 8, D)
+    if taken:
+        fa._check_cuda(q, q, q)
+    else:
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._check_cuda(q, q, q)
 
 
 def test_flash_attention_rows_without_keys_are_zero():

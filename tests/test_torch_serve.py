@@ -184,21 +184,26 @@ def test_serve_without_gpu_raises(monkeypatch):
         serve.main(["--smoke"])
 
 
-# Config branches on the tinyllama smoke config: the first twelve are ported
-# and held against JAX (leaf names, full logits, prefill and two decode
-# steps; the MoE branch on its capacity path, with the train capacity in
-# the full logits and the serve capacity in prefill and decode, as the
-# reference); the rest are refused by name.
+# Config branches on the tinyllama smoke config: the first fourteen are
+# ported and held against JAX (leaf names, full logits, prefill and two
+# decode steps; the MoE branch on its capacity path, with the train capacity
+# in the full logits and the serve capacity in prefill and decode, as the
+# reference; an attn layer followed by an MLA layer, whose head_dim
+# qk_nope + qk_rope = 32 differs from the attn layer's 16; an MLA config
+# beside attn blocks only, which no layer reads); the rest are refused by
+# name.
 BRANCHES = [
     dict(norm="layernorm"), dict(norm_unit_offset=True), dict(scale_embed=True),
     dict(logit_softcap=30.0), dict(qkv_bias=True), dict(tie_embeddings=True),
     dict(parallel_block=True), dict(rope_type="mrope", mrope_sections=(2, 3, 3)),
     dict(visual_stub=True), dict(mlp_act="gelu"),
     dict(moe=MoEConfig(num_experts=4, top_k=2, d_expert=64)), dict(remat_policy="dots"),
-    dict(block_pattern=("attn", "mla")), dict(mla=MLAConfig()),
+    dict(block_pattern=("attn", "mla"),
+         mla=MLAConfig(q_lora=64, kv_lora=32, qk_nope=16, qk_rope=16, v_head=16)),
+    dict(mla=MLAConfig()),
     dict(enc_dec=EncDecConfig()), dict(mlp_act="gelu_mlp"),
 ]
-N_PORTED_BRANCHES = 12
+N_PORTED_BRANCHES = 14
 
 
 @pytest.mark.parametrize("change", BRANCHES)
@@ -237,14 +242,21 @@ def test_config_branch_matches_jax_or_raises(change):
 
 def test_unported_archs_raise():
     assert PORTED == ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b", "gemma_2b", "gemma_7b",
-                      "command_r_35b", "qwen2_vl_7b", "granite_moe_3b_a800m")
+                      "command_r_35b", "qwen2_vl_7b", "granite_moe_3b_a800m",
+                      "deepseek_v2_236b")
     unported = [arch for arch in ARCH_IDS if arch not in PORTED]
-    assert unported == ["deepseek_v2_236b", "whisper_tiny"]
-    for arch in unported:
-        with pytest.raises(NotImplementedError):
-            get_config(arch)
-    with pytest.raises(NotImplementedError, match="mla"):
-        get_config("deepseek-v2-236b")
+    assert unported == ["whisper_tiny"]
+    with pytest.raises(NotImplementedError, match="enc_dec"):
+        get_config("whisper-tiny")
+    cfg = get_config("deepseek-v2-236b")
+    assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads) == (5120, 60, 128, 128)
+    m = cfg.mla
+    assert (m.q_lora, m.kv_lora, m.qk_nope, m.qk_rope, m.v_head) == (1536, 512, 128, 64, 128)
+    assert (cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_expert, cfg.moe.num_shared,
+            cfg.moe.first_dense_layers, cfg.moe.dense_d_ff) == (160, 6, 1536, 2, 1, 12288)
+    build_model(cfg)  # check_supported passes MLA
+    with pytest.raises(ValueError, match="cfg.mla"):
+        build_model(replace(cfg, mla=None))
     cfg = get_config("granite-moe-3b-a800m")
     assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (1536, 32, 24, 8, 64)
     assert (cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_expert) == (40, 8, 512)
