@@ -15,7 +15,9 @@ Phases, each of which raises on failure (nothing is caught):
              gemma-7b's, gemma-2b's, qwen2-vl-7b's, command-r-35b's and
              granite-moe-3b-a800m's; deepseek-v2-236b's MLA prefill, MHA
              at D = 192 with V zero-padded from 128, whose padded output
-             columns must stay zeros),
+             columns must stay zeros; whisper-tiny's encoder, full at S =
+             T = 1500, its cross-attention, full at S = 383 against T =
+             1500, its decoder, causal at 383, and its decode),
              ragged ones, the edges of the flash kernel's tiles (S = T =
              128 and 129, S = 1 against T = 1065, S = 127 against T = 300,
              KV = H at D = 128, D = 192 at S = T = 129 with padded V and
@@ -28,7 +30,9 @@ Phases, each of which raises on failure (nothing is caught):
              fp32 references on the same bf16 values, with a tight limit
              that planted faults must break (the decode faults at every
              decode serve shape, the flash faults at TinyLlama's and
-             deepseek-v2's); then timings of kernel, plain version
+             deepseek-v2's, and at whisper-tiny's full shapes a causal
+             mask and the last key tile dropped); then timings of kernel,
+             plain version
              and the PyTorch library call (SDPA, a yardstick the port never
              calls): CUDA events for the flash kernel, profiler device time
              per call (and host µs per call) for the decode kernel, at the
@@ -47,7 +51,7 @@ Phases, each of which raises on failure (nothing is caught):
              reject; readings of each bf16 state with its decayed operand
              (Mamba2's B~, RWKV6's k~) rounded to one bf16 part; CTAs an SM
              of both bf16 kernels; timings of kernel and plain version.
-5. main    — nine paths, each full width in bf16 with random weights from
+5. main    — ten paths, each full width in bf16 with random weights from
              a seed, serving batch 8 and 64 greedy tokens through
              ``make_generate_loop``: tinyllama-1.1b (prompt 1000),
              zamba2-1.2b and rwkv6-7b (prompt 1024, a multiple of the
@@ -59,7 +63,12 @@ Phases, each of which raises on failure (nothing is caught):
              capacity path) and deepseek-v2-236b (prompt 1000; 8 of its
              60 layers: the dense first layer and 7 MoE layers of 160
              experts top-6 with 2 shared; MLA: the flash kernel in
-             prefill, latent-space decode without a kernel).  Each checks its parameter leaves, launch
+             prefill, latent-space decode without a kernel) and
+             whisper-tiny (prompt 383; 4 encoder and 4 decoder layers at
+             full depth over 1500 seeded frame embeddings a request: the
+             flash kernel full in the encoder and the cross-attention,
+             causal in the decoder; the decode kernel in the decoder's
+             self-attention, the cross decode plain).  Each checks its parameter leaves, launch
              counts, token range, its peak memory (within 90% of the
              card), and the kernel path's logits (prefill and every decode
              step) and final cache against the plain path's, teacher
@@ -67,23 +76,30 @@ Phases, each of which raises on failure (nothing is caught):
              pairs whose top-k experts and kept assignments differ, and of
              the assignments dropped); then the same check on paths with
              planted faults, which it must reject (on the MLA path a
-             fault of its latent decode too); and profiles one
+             fault of its latent decode too; on whisper-tiny the encoder
+             run causal, and, read only, the cross-attention without its
+             last 28 frames); and profiles one
              prefill and a window of decode steps (on the MoE paths split
-             into expert products, dispatch/combine and attention, and on
-             the MLA path the MLA blocks' share).
+             into expert products, dispatch/combine and attention, on
+             the MLA path the MLA blocks' share, on whisper-tiny the
+             encoder, the decoder's cross-attention and the rest).
 6. grads   — the three autograd Functions of ``kernels/ops.py`` (kernel
              forward, plain backward) against plain autograd in fp32 at
              small shapes, at the reference's custom-VJP limits (attention
              also as MLA calls it: D = 192, V padded from 128, scale
-             192^-0.5), and a backward that drops one input's gradient,
-             which must fail.
-7. train   — five paths in bf16 with random weights from a seed, through
+             192^-0.5; and full with S = 100 against T = 300, as a
+             cross-attention calls it), and a backward that drops one
+             input's gradient, which must fail.
+7. train   — six paths in bf16 with random weights from a seed, through
              ``make_train_state``/``make_train_step``: tinyllama-1.1b and
              zamba2-1.2b full (batch 8, seq 1024), rwkv6-7b at full width
              with 4 of its 32 layers (batch 8), gemma-2b full (tied head;
              batch 6, the largest that fits), granite-moe-3b-a800m at full
              width with 16 of its 32 layers under the ``dots`` remat policy
-             (batch 8).  Each takes 4 steps on one
+             (batch 8), whisper-tiny full (batch 8 x 448 tokens, 1500
+             frame embeddings a sequence; the int8 gradient codec over a
+             step's gradients on the card, bit for bit against the CPU).
+             Each takes 4 steps on one
              repeated batch (step ms, tok/s, peak memory within 85% of the
              card; the loss must be finite and fall, the MoE path prints
              its aux loss beside the xent; launches a step
@@ -171,12 +187,15 @@ TIGHT_ATOL, TIGHT_RTOL = 5e-3, 1e-2
 # layers the init peaked at 69.2 GB and the phase at 74.35 GB (the plain
 # and fp32 attention of the teacher-forced checks) of the card's 85.02 GB
 # (NVIDIA H100 80GB HBM3, 700.00 W); a ninth layer's 7.94 GB would take it
-# past SERVE_MEM_SHARE.  Every path's
-# peak must stay within SERVE_MEM_SHARE of the card.
+# past SERVE_MEM_SHARE.  whisper-tiny serves at full depth (4 encoder and 4
+# decoder layers, 1500 frame embeddings a request) with a prompt of 383: a
+# prompt, 64 tokens and the slot after them fill its published text
+# context of 448.  Every path's peak must stay within SERVE_MEM_SHARE of
+# the card.
 PATHS = (("tinyllama-1.1b", 1000, None), ("zamba2-1.2b", 1024, None), ("rwkv6-7b", 1024, 16),
          ("gemma-7b", 1000, None), ("gemma-2b", 1000, None), ("qwen2-vl-7b", 1000, None),
          ("command-r-35b", 1000, 36), ("granite-moe-3b-a800m", 1000, None),
-         ("deepseek-v2-236b", 1000, 8))
+         ("deepseek-v2-236b", 1000, 8), ("whisper-tiny", 383, None))
 SERVE_MEM_SHARE = 0.9
 BATCH, GEN = 8, 64
 PROMPT = PATHS[0][1]  # the attention kernels' main serve shapes are TinyLlama's
@@ -391,21 +410,29 @@ def _serve_shapes():
     """The attention kernels' shapes on every main path that attends, from
     its config: decode (B, H, KV, T, D) at the last step's cache (None for
     MLA, whose decode attends in the latent space, plain torch), prefill
-    (B, H, KV, S, T, D, causal), and the width of V before its zero
-    padding (MLA: v_head; else None)."""
+    {label: (B, H, KV, S, T, D, causal)} (the arch; the encoder-decoder's
+    three: the encoder's and the cross-attention's full, the decoder's
+    causal), and the width of V before its zero padding (MLA: v_head; else
+    None)."""
     from repro_torch.configs import get_config
 
     out = {}
     for arch, prompt, _ in PATHS:
         cfg = get_config(arch)
-        if {"attn", "shared_attn"} & set(cfg.blocks):
-            H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-            out[arch] = ((BATCH, H, KV, prompt + GEN + 1, D),
-                         (BATCH, H, KV, prompt, prompt, D, True), None)
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        dec = (BATCH, H, KV, prompt + GEN + 1, D)
+        if cfg.enc_dec is not None:
+            T = cfg.enc_dec.n_audio_ctx
+            out[arch] = (dec, {f"{arch} encoder": (BATCH, H, KV, T, T, D, False),
+                               f"{arch} cross-attention": (BATCH, H, KV, prompt, T, D, False),
+                               f"{arch} decoder": (BATCH, H, KV, prompt, prompt, D, True)},
+                         None)
+        elif {"attn", "shared_attn"} & set(cfg.blocks):
+            out[arch] = (dec, {arch: (BATCH, H, KV, prompt, prompt, D, True)}, None)
         elif "mla" in cfg.blocks:  # MHA at qk_nope + qk_rope, V padded to it
             m, H = cfg.mla, cfg.n_heads
-            out[arch] = (None, (BATCH, H, H, prompt, prompt, m.qk_nope + m.qk_rope, True),
-                         m.v_head)
+            out[arch] = (None, {arch: (BATCH, H, H, prompt, prompt, m.qk_nope + m.qk_rope,
+                                       True)}, m.v_head)
     return out
 
 
@@ -418,16 +445,18 @@ def phase_kernels(torch):
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     errs = {}
     serve = _serve_shapes()
-    main_dec, main_fa, _ = serve.pop("tinyllama-1.1b")
-    mha_dec, mha_fa, _ = serve.pop("zamba2-1.2b")  # Zamba2's shared block: MHA
-    # the dense paths that follow: each is checked at its serve shapes
+    main_dec, main_prefill, _ = serve.pop("tinyllama-1.1b")
+    mha_dec, mha_prefill, _ = serve.pop("zamba2-1.2b")  # Zamba2's shared block: MHA
+    (main_fa,), (mha_fa,) = main_prefill.values(), mha_prefill.values()
+    # the paths that follow: each is checked at its serve shapes
     dec_serve = {arch: shapes[0] for arch, shapes in serve.items() if shapes[0] is not None}
-    fa_serve = {arch: shapes[1] for arch, shapes in serve.items()}
+    fa_serve = {label: case for shapes in serve.values() for label, case in shapes[1].items()}
     # MLA's prefill (D = 192, V zero-padded from 128; the default scale
     # D^-0.5 is MLA's (qk_nope + qk_rope)^-0.5), and at the tile edges:
     # case -> V's width before the padding
     mla_edge = (2, 8, 8, 129, 129, 192, True)
-    fa_dv = {shapes[1]: shapes[2] for shapes in serve.values() if shapes[2] is not None}
+    fa_dv = {case: shapes[2] for shapes in serve.values() if shapes[2] is not None
+             for case in shapes[1].values()}
     fa_dv[mla_edge] = 128
 
     # --- flash attention: (B, H, KV, S, T, D, causal)
@@ -446,6 +475,7 @@ def phase_kernels(torch):
                 mla_edge,
                 *fa_serve.values()]
     mla_bf16 = {}  # bf16 inputs and output at each MLA serve shape: its controls
+    full_bf16 = {}  # the same at each non-causal serve shape (the encoder-decoder's)
     for case in fa_cases:
         B, H, KV, S, T, D, causal = case
         dv = fa_dv.get(case)
@@ -467,6 +497,8 @@ def phase_kernels(torch):
                 main_bf16 = (q, k, v, got)
             if case in fa_serve.values() and dv is not None and dt == torch.bfloat16:
                 mla_bf16[case] = (q, k, v, got)
+            if case in fa_serve.values() and not causal and dt == torch.bfloat16:
+                full_bf16[case] = (q, k, v, got)
             del q, k, v, got, want
     # rows that see no key (causal, S > T) are zeros, as on the TPU
     for dname, dt in dtypes.items():
@@ -481,8 +513,10 @@ def phase_kernels(torch):
             assert_close(label + " vs fp32 reference", got,
                          attention_f32(torch, q, k, v, True), TIGHT_ATOL, TIGHT_RTOL)
     fa_controls = _kernel_controls(torch, *main_bf16)
-    mla_controls = {case: _kernel_controls(torch, *inputs) for case, inputs in mla_bf16.items()}
-    del mla_bf16
+    shape_controls = {case: _kernel_controls(torch, *inputs) for case, inputs in mla_bf16.items()}
+    shape_controls.update({case: _kernel_controls(torch, *inputs, causal=False)
+                           for case, inputs in full_bf16.items()})
+    del mla_bf16, full_bf16
 
     # --- flash decode: (B, H, KV, T, D)
     T_main = main_dec[3]
@@ -552,24 +586,25 @@ def phase_kernels(torch):
 
     def flash_timing(case):
         """CUDA-event ms (kernel, plain, SDPA) and the bound at a prefill shape."""
-        B, H, KV, S, T, D, _ = case
+        B, H, KV, S, T, D, causal = case
         dv = fa_dv.get(case)
         nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * T * D)
         fa_in = copies_beyond_l2(lambda: _prefill_inputs(torch, gen, B, H, KV, S, T, D, bf, dv),
                                  nbytes)
-        pairs = sum(min(T, i + T - S + 1) for i in range(S))  # causal (query, key) pairs
+        # the (query, key) pairs computed: query i sees keys <= i + T - S when causal
+        pairs = sum(max(0, min(T, i + T - S + 1)) for i in range(S)) if causal else S * T
         t_bound, by = bound(4 * B * H * D * pairs, nbytes, PEAK_BF16_FLOPS)
         row = {
-            "shape": f"B={B} H={H} KV={KV} S={S} T={T} D={D} causal bf16"
-                     + (f", V zero-padded from {dv}" if dv else ""),
+            "shape": f"B={B} H={H} KV={KV} S={S} T={T} D={D} {'causal' if causal else 'full'} "
+                     f"bf16" + (f", V zero-padded from {dv}" if dv else ""),
             "max_abs_err": errs[("fa", case, "bfloat16")],
             "max_abs_err_fp32": errs[("fa", case, "float32")],
             "max_abs_err_vs_fp32_reference": errs[("fa32", case)],
-            "ms": time_ms(torch, lambda q, k, v: fa.flash_attention_fwd(q, k, v, True), fa_in),
-            "plain_ms": time_ms(torch, lambda q, k, v: fa.attention_plain(q, k, v, True), fa_in,
+            "ms": time_ms(torch, lambda q, k, v: fa.flash_attention_fwd(q, k, v, causal), fa_in),
+            "plain_ms": time_ms(torch, lambda q, k, v: fa.attention_plain(q, k, v, causal), fa_in,
                                 iters=5, warmup=1),
             "library_ms": time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), fa_in),
+                q, k, v, is_causal=causal, enable_gqa=True), fa_in),
             "bound_ms": t_bound, "bound_by": by}
         del fa_in
         log(f"[kernels] flash_attention_fwd {row['shape']}: kernel {row['ms']:.4f} ms, "
@@ -584,9 +619,9 @@ def phase_kernels(torch):
         "tol": TOL["bfloat16"], "tol_fp32": TOL["float32"],
         "tol_vs_fp32_reference": {"atol": TIGHT_ATOL, "rtol": TIGHT_RTOL},
         "controls": fa_controls,
-        "shapes": {arch: dict(flash_timing(case), **({"controls": mla_controls[case]}
-                                                     if case in mla_controls else {}))
-                   for arch, case in fa_serve.items()}})
+        "shapes": {label: dict(flash_timing(case), **({"controls": shape_controls[case]}
+                                                      if case in shape_controls else {}))
+                   for label, case in {"zamba2-1.2b": mha_fa, **fa_serve}.items()}})
 
     def decode_timing(case):
         """Device ms (kernel, plain, SDPA) and host µs per call at a serve
@@ -645,17 +680,21 @@ def phase_kernels(torch):
     return [fa_row, dec_row]
 
 
-def _kernel_controls(torch, q, k, v, got):
+def _kernel_controls(torch, q, k, v, got, causal=True):
     """Hold the sound bf16 kernel output against fp32 references of kernels
     with planted faults: the tight limit must reject every one of them.
-    Also reads how many elements the plain-path limit (2e-2) would flag."""
-    S = q.shape[2]
-    tail = S - S % 64 if S % 64 else S - 64  # first key of the last partial tile
+    Also reads how many elements the plain-path limit (2e-2) would flag.
+    A causal case's faults move its mask by one key; a full one's are a
+    causal mask; both drop the keys of the last 64-key tile."""
+    S, T = q.shape[2], k.shape[2]
+    tail = T - T % 64 if T % 64 else T - 64  # first key of the last (partial) tile
+    faults = ((("causal offset +1 (one future key)", {"shift": 1}),
+               ("causal offset -1 (diagonal key missing)", {"shift": -1})) if causal else
+              (("a causal mask (offset T - S)", {"causal": True}),))
     readings = []
-    for fault, kw in (("causal offset +1 (one future key)", {"shift": 1}),
-                      ("causal offset -1 (diagonal key missing)", {"shift": -1}),
-                      (f"keys {tail}..{S - 1} dropped (last tile)", {"drop_from": tail})):
-        want = attention_f32(torch, q, k, v, True, **kw)
+    for fault, kw in (*faults, (f"keys {tail}..{T - 1} dropped (last tile)",
+                                {"drop_from": tail})):
+        want = attention_f32(torch, q, k, v, kw.pop("causal", causal), **kw)
         err, n_tight, _ = beyond(got, want, TIGHT_ATOL, TIGHT_RTOL)
         _, n_late, _ = beyond(got[:, :, S // 2:], want[:, :, S // 2:], TIGHT_ATOL, TIGHT_RTOL)
         _, n_loose, _ = beyond(got, want, TOL["bfloat16"], TOL["bfloat16"])
@@ -1125,6 +1164,25 @@ def phase_scans(torch):
 # shape None: the leaf must be absent
 def _expected_leaves(cfg):
     L, D, H, KV, hd = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if cfg.enc_dec is not None:  # lists of layers; the tied head; the plain MLP keeps wg
+        out = [(("lm_head",), None, "bfloat16"), (("layers",), None, "bfloat16"),
+               (("embed", "tok"), (cfg.padded_vocab, D), "bfloat16"),
+               (("pos_dec",), (32776, D), "bfloat16"),
+               (("enc_norm", "bias"), (D,), "bfloat16"), (("dec_norm", "scale"), (D,), "bfloat16")]
+        for i in range(cfg.enc_dec.n_enc_layers):
+            out += [(("enc_layers", i, "attn", "wq"), (D, H, hd), "bfloat16"),
+                    (("enc_layers", i, "attn", "bk"), (KV, hd), "bfloat16"),
+                    (("enc_layers", i, "ln1", "bias"), (D,), "bfloat16"),
+                    (("enc_layers", i, "mlp", "wg"), (D, cfg.d_ff), "bfloat16"),
+                    (("enc_layers", i, "xattn"), None, "bfloat16")]
+        for i in range(L):
+            out += [(("dec_layers", i, "attn", "wk"), (D, KV, hd), "bfloat16"),
+                    (("dec_layers", i, "lnx", "scale"), (D,), "bfloat16"),
+                    (("dec_layers", i, "xattn", "wv"), (D, KV, hd), "bfloat16"),
+                    (("dec_layers", i, "xattn", "bq"), (H, hd), "bfloat16"),
+                    (("dec_layers", i, "xattn", "wo"), (H, hd, D), "bfloat16"),
+                    (("dec_layers", i, "mlp", "wo"), (cfg.d_ff, D), "bfloat16")]
+        return out
     head = [(("lm_head",), None if cfg.tie_embeddings else (cfg.padded_vocab, D), "bfloat16"),
             (("embed", "tok"), (cfg.padded_vocab, D), "bfloat16")]
     if cfg.mamba is not None:
@@ -1187,7 +1245,14 @@ def _expected_leaves(cfg):
 def _expected_launches(cfg):
     """Launches in one served run: a prefill, then GEN decode steps.  An
     ``mla`` block runs the flash kernel in prefill and decodes in the
-    latent space, with no kernel."""
+    latent space, with no kernel.  The encoder-decoder runs it in each
+    encoder layer and twice in each decoder layer (self and cross), and
+    the decode kernel in each decoder layer a step (its cross decode is
+    plain)."""
+    zero = {"flash_attention_fwd": 0, "flash_decode": 0, "mamba2_scan": 0, "rwkv6_scan": 0}
+    if cfg.enc_dec is not None:
+        return dict(zero, flash_attention_fwd=cfg.enc_dec.n_enc_layers + 2 * cfg.n_layers,
+                    flash_decode=cfg.n_layers * GEN)
     n = {kind: sum(b == kind for b in cfg.blocks)
          for kind in ("attn", "shared_attn", "mla", "mamba2", "rwkv6")}
     n_attn = n["attn"] + n["shared_attn"]
@@ -1244,6 +1309,9 @@ def phase_main(torch, smi, arch, prompt, layers):
     if cfg.visual_stub:  # as launch/serve.py: seeded patch embeddings over the first slots
         batch["visual_embeds"] = torch.randn((BATCH, N_IMG, cfg.d_model), generator=gen,
                                              device="cuda")
+    if cfg.enc_dec is not None:  # as launch/serve.py: seeded frame embeddings
+        batch["frames"] = torch.randn((BATCH, cfg.enc_dec.n_audio_ctx, cfg.d_model),
+                                      generator=gen, device="cuda")
     max_len = prompt + GEN + 1
     prefill = make_prefill_step(model, max_len)
     generate = make_generate_loop(model, GEN)
@@ -1288,6 +1356,8 @@ def phase_main(torch, smi, arch, prompt, layers):
             kdec(params, ck, tok, pos)
 
     _, dec_prof = _profile(torch, f"{arch} decode x8", decode_window, cfg)
+    if cfg.enc_dec is not None:
+        _check_enc_dec_cache(torch, tag, cfg, ck, max_len)
     del ck
 
     # teacher-forced parity: kernel path vs plain path, both fed the served
@@ -1440,12 +1510,43 @@ def _routing_report(tag, cfg, routes):
     return out
 
 
+def _check_enc_dec_cache(torch, tag, cfg, cache, max_len):
+    """The encoder-decoder's primed cache, layer by layer: ``self`` k and v
+    (B, max_len, KV, hd) and the cross ``mem_k`` and ``mem_v`` (B, H,
+    n_audio_ctx, hd), in the compute dtype."""
+    H, KV, hd, T = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.enc_dec.n_audio_ctx
+    want = {"k": (BATCH, max_len, KV, hd), "v": (BATCH, max_len, KV, hd),
+            "mem_k": (BATCH, H, T, hd), "mem_v": (BATCH, H, T, hd)}
+    layers = cache["layers"]
+    if len(layers) != cfg.n_layers:
+        raise AssertionError(f"{tag} cache holds {len(layers)} layers, expected {cfg.n_layers}")
+    for i, lc in enumerate(layers):
+        for key, t in _cache_leaves(lc):
+            if tuple(t.shape) != want[key] or t.dtype != cfg.compute_tdtype():
+                raise AssertionError(f"{tag} cache layer {i} {key}: {tuple(t.shape)} {t.dtype}, "
+                                     f"expected {want[key]} {cfg.compute_dtype}")
+    log(f"{tag} primed cache: {len(layers)} layers, each self k/v {want['k']} and cross "
+        f"mem_k/mem_v {want['mem_k']}: ok")
+
+
+def _cache_leaves(cache):
+    """(key, tensor) for every leaf of a cache tree, the key its own name."""
+    if isinstance(cache, dict):
+        for key, val in cache.items():
+            yield from ([(key, val)] if hasattr(val, "shape") else _cache_leaves(val))
+    else:
+        for val in cache:
+            yield from _cache_leaves(val)
+
+
 def _teacher_forced(torch, prefill, decode, params, batch, inputs, prompt):
     """Prefill, then one decode step per column of ``inputs``; the logits of
     every step (prefill first), the final cache, and a copy of the cache as
     the prefill left it (the decode steps update the cache in place)."""
+    from repro_torch.tree import tree_map
+
     logits, cache = prefill(params, batch)
-    primed = [{k: t.clone() for k, t in c.items()} for c in cache]
+    primed = tree_map(lambda t: t.clone(), cache)
     out = [logits]
     for t in range(inputs.shape[1]):
         pos = torch.full((BATCH,), prompt + t, dtype=torch.int32, device="cuda")
@@ -1483,9 +1584,8 @@ def _rel_by_kind(got, want, V):
     together)."""
     out = {"logits": max(_relrms(a[:, :V], b[:, :V]) for a, b in zip(got[0], want[0]))}
     for g_cache, w_cache in ((got[1], want[1]), (got[2], want[2])):
-        for g, w in zip(g_cache, w_cache):
-            for key in w:
-                out[key] = max(out.get(key, 0.0), _relrms(g[key], w[key]))
+        for (key, g), (_, w) in zip(_cache_leaves(g_cache), _cache_leaves(w_cache)):
+            out[key] = max(out.get(key, 0.0), _relrms(g, w))
     return out
 
 
@@ -1598,6 +1698,32 @@ def _faults(torch, ops, cfg):
         return decode_attention(q, k, v, length - 1, scale, impl)
 
     prefill_fault = ("prefill rows see one future key", True, ops, {"attention": future_key})
+    # with KV = H (MHA) or KV = 1 (MQA) "h % KV" is every head's own KV
+    # head; there the fault hands head h the output of head h - 1
+    head_fault = (("decode head h reads KV head h % KV", head_mod) if 1 < KV < H else
+                  ("decode head h gets head h - 1's output", heads_rotated))
+    if cfg.enc_dec is not None:
+        # the encoder's self-attention run causal; the prefill's
+        # cross-attention without the frames of the flash kernel's ragged
+        # last key tile (1500 = 23 * 64 + 28: read, not required); the
+        # decoder's self-attention decode, as on the other paths
+        from repro_torch.models import whisper
+
+        self_attn, cross_attn = whisper._self_attn, whisper._cross_attn
+        T = cfg.enc_dec.n_audio_ctx
+        tail = T - T % 64 if T % 64 else T - 64
+
+        def encoder_causal(cfg_, bp, x, positions, causal):
+            return self_attn(cfg_, bp, x, positions, True)
+
+        def cross_tail_dropped(cfg_, bp, x, mem_k, mem_v):
+            return cross_attn(cfg_, bp, x, mem_k[:, :, :tail], mem_v[:, :, :tail])
+
+        return [("the encoder's self-attention runs causal", True, whisper,
+                 {"_self_attn": encoder_causal}),
+                (f"prefill cross-attention misses frames {tail}..{T - 1} (the last key tile)",
+                 False, whisper, {"_cross_attn": cross_tail_dropped}),
+                (head_fault[0], True, ops, {"decode_attention": head_fault[1]})]
     if cfg.mla is not None:
         # MLA's own decode, in the latent space (no kernel): its attention
         # over the latent cache, with the attended latents of the heads
@@ -1621,10 +1747,6 @@ def _faults(torch, ops, cfg):
 
     # one key of 1000+ moves the logits about as much as bf16 rounding does:
     # read, not required
-    # with KV = H (MHA) or KV = 1 (MQA) "h % KV" is every head's own KV
-    # head; there the fault hands head h the output of head h - 1
-    head_fault = (("decode head h reads KV head h % KV", head_mod) if 1 < KV < H else
-                  ("decode head h gets head h - 1's output", heads_rotated))
     return [prefill_fault,
             (head_fault[0], True, ops, {"decode_attention": head_fault[1]}),
             ("decode drops the newest key", False, ops, {"decode_attention": newest_dropped})]
@@ -1642,23 +1764,36 @@ def _planted(ops, **fns):
             setattr(ops, name, fn)
 
 
+# the profiler ranges that _ranges sets from this script; _profile reads the
+# device time of their ops and keeps their own spans out of the busy time
+RANGES = ("mla", "encoder", "cross-attention")
+
+
 @contextlib.contextmanager
-def _mla_ranges(torch, cfg):
+def _ranges(torch, cfg):
     """On an MLA path, each MLA block's prefill and decode inside a profiler
-    range named "mla", whose device time ``_profile`` reads."""
-    if cfg is None or cfg.mla is None:
+    range named "mla"; on the encoder-decoder, ``encode`` inside "encoder"
+    and the decoder's cross-attention (the cross K/V projections, the
+    prefill's flash call, the plain cross decode) inside
+    "cross-attention".  ``_profile`` reads their device time."""
+    if cfg is None or (cfg.mla is None and cfg.enc_dec is None):
         yield
         return
-    from repro_torch.models import attention
+    from repro_torch.models import attention, whisper
 
-    def ranged(fn):
-        def call(*args):
-            with torch.profiler.record_function("mla"):
-                return fn(*args)
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
         return call
 
-    with _planted(attention, mla_prefill=ranged(attention.mla_prefill),
-                  mla_decode=ranged(attention.mla_decode)):
+    if cfg.mla is not None:
+        target, fns = attention, {"mla_prefill": "mla", "mla_decode": "mla"}
+    else:
+        target, fns = whisper, {"encode": "encoder", "_mem_kv": "cross-attention",
+                                "_cross_attn": "cross-attention",
+                                "_cross_decode": "cross-attention"}
+    with _planted(target, **{fn: ranged(name, getattr(target, fn)) for fn, name in fns.items()}):
         yield
 
 
@@ -1672,7 +1807,7 @@ def _profile(torch, name, fn, cfg=None):
 
     moe = cfg is not None and cfg.moe is not None
     torch.cuda.synchronize()
-    with _mla_ranges(torch, cfg), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with _ranges(torch, cfg), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                                           record_shapes=moe) as prof:
         t0 = time.perf_counter()
         out = fn()
@@ -1680,11 +1815,11 @@ def _profile(torch, name, fn, cfg=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies); CPU ops carry their kernels'
     # device time as well and would count it twice, and so do the device-side
-    # spans of record_function ranges (ops' "plain backward: <kernel>", "mla")
+    # spans of record_function ranges (ops' "plain backward: <kernel>", RANGES)
     cpu = torch.autograd.DeviceType.CPU
     rows = [e for e in prof.key_averages()
             if e.device_type != cpu and e.self_device_time_total > 0
-            and not e.key.startswith("plain backward") and e.key != "mla"]
+            and not e.key.startswith("plain backward") and e.key not in RANGES]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     if busy_ms == 0:
         log(f"[profile] {name}: wall {wall_ms:.2f} ms; the profiler saw no device time "
@@ -1708,9 +1843,19 @@ def _profile(torch, name, fn, cfg=None):
                "plain_backward_ms": plain_bwd}
     if moe:
         reading["parts_ms"] = _moe_split(prof, cfg, plain_bwd)
-        for part, ms in reading["parts_ms"].items():
-            log(f"[profile]   {part}: {ms:.3f} ms device, {100 * ms / busy_ms:.1f}% of the busy "
-                f"time")
+    elif cfg is not None and cfg.enc_dec is not None:
+        # the ranges' CPU-side events: the device time of the ops inside
+        # (the forward's, and a remat recomputation's; not the backward's)
+        parts = {key: sum(e.device_time_total for e in prof.key_averages()
+                          if e.device_type == cpu and e.key == key) / 1e3
+                 for key in ("encoder", "cross-attention")}
+        reading["parts_ms"] = {"encoder": parts["encoder"],
+                               "decoder cross-attention (its flash calls, the cross K/V "
+                               "projections, the plain cross decode)": parts["cross-attention"],
+                               "rest": busy_ms - sum(parts.values())}
+    for part, ms in reading.get("parts_ms", {}).items():
+        log(f"[profile]   {part}: {ms:.3f} ms device, {100 * ms / busy_ms:.1f}% of the busy "
+            f"time")
     return out, reading
 
 
@@ -1723,7 +1868,7 @@ def _moe_split(prof, cfg, plain_bwd):
     and attention (the flash and decode kernels and ops' plain attention
     backward).  On an MLA path also the MLA blocks whole (projections,
     latent attention, the flash kernel: the "mla" ranges of
-    ``_mla_ranges``), attention among them.  Routing, norms, the other
+    ``_ranges``), attention among them.  Routing, norms, the other
     projections and the head are the rest."""
     from torch.autograd import DeviceType
 
@@ -1770,10 +1915,12 @@ GRAD_TOL = {"attention": 2e-4, "mamba2": 2e-3, "rwkv6": 2e-3}
 # width with 16 of its 32 layers: state at ~16 B a parameter is ~54 GB at
 # full depth (3.375 B), and the kernel-vs-plain parity step holds a second
 # copy beside it; at 16 layers (1.763 B) the state is ~28 GB, ~63 GB with
-# the copy and the plain step's master.
+# the copy and the plain step's master.  whisper-tiny trains at full depth on
+# its published text context, 448 tokens, against 1500 frame embeddings a
+# sequence.
 TRAIN_PATHS = (("tinyllama-1.1b", None, 8, 1024), ("zamba2-1.2b", None, 8, 1024),
                ("rwkv6-7b", 4, 8, 1024), ("gemma-2b", None, 6, 1024),
-               ("granite-moe-3b-a800m", 16, 8, 1024))
+               ("granite-moe-3b-a800m", 16, 8, 1024), ("whisper-tiny", None, 8, 448))
 TRAIN_MEM_SHARE = 0.85
 TRAIN_STEPS = 4
 TRAIN_LR = 1e-3
@@ -1824,7 +1971,8 @@ def _grad_case(torch, ops, name, fwd, args, tol, fn_cls, drop, label=""):
 def phase_grads(torch):
     """The three autograd Functions on the card in fp32, at small shapes;
     the attention Function also as MLA calls it (D = 192, V zero-padded
-    from 128 and sliced back, scale 192^-0.5)."""
+    from 128 and sliced back, scale 192^-0.5) and full (non-causal) with S
+    != T, as the encoder-decoder's cross-attention calls it."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
 
@@ -1837,9 +1985,13 @@ def phase_grads(torch):
     x, dt, A, Bm, Cm, _ = _mamba_inputs(torch, gen, 1, 256, 2, 16, 1, 16, f32)
     r, kk, vv, w, u, _ = _rwkv_inputs(torch, gen, 1, 128, 2, 16, f32)
     qm, km, vm = _prefill_inputs(torch, gen, 1, 4, 4, 128, 128, 192, f32)
+    qf, kf, vf = _prefill_inputs(torch, gen, 1, 6, 6, 100, 300, 64, f32)
 
     def mla_attention(q, k, v, impl):
         return ops.attention(q, k, F.pad(v, (0, 64)), True, 192 ** -0.5, impl=impl)[..., :128]
+
+    def full_attention(q, k, v, impl):
+        return ops.attention(q, k, v, False, impl=impl)
 
     out = {
         "attention": _grad_case(torch, ops, "flash_attention_fwd", ops.attention, (q, k, v),
@@ -1847,6 +1999,9 @@ def phase_grads(torch):
         "attention_mla": _grad_case(torch, ops, "flash_attention_fwd", mla_attention,
                                     (qm, km, vm[..., :128]), GRAD_TOL["attention"],
                                     ops._AttentionFn, 1, " (MLA: D = 192, V padded from 128)"),
+        "attention_full": _grad_case(torch, ops, "flash_attention_fwd", full_attention,
+                                     (qf, kf, vf), GRAD_TOL["attention"], ops._AttentionFn, 1,
+                                     " (full, S = 100 vs T = 300, as cross-attention)"),
         "mamba2": _grad_case(torch, ops, "mamba2_scan", ops.mamba2, (x, dt, A, Bm, Cm),
                              GRAD_TOL["mamba2"], ops._Mamba2Fn, 0),
         "rwkv6": _grad_case(torch, ops, "rwkv6_scan", ops.rwkv6, (r, kk, vv, w, u),
@@ -1867,8 +2022,12 @@ def _train_config(arch, layers):
 
 def _expected_train_launches(cfg):
     """Kernel launches in one train step: each layer's forward, and again
-    in its recomputation under remat; the backward is plain torch."""
+    in its recomputation under remat; the backward is plain torch.  The
+    encoder-decoder's encoder layers run outside remat, once."""
     per = 2 if cfg.remat else 1
+    if cfg.enc_dec is not None:
+        return dict(_expected_launches(cfg), flash_decode=0,
+                    flash_attention_fwd=cfg.enc_dec.n_enc_layers + per * 2 * cfg.n_layers)
     return {k: 0 if k == "flash_decode" else per * n for k, n in _expected_launches(cfg).items()}
 
 
@@ -1910,6 +2069,10 @@ def phase_train(torch, smi, arch, layers, batch_size, seq):
     rng = np.random.default_rng(4)
     seqs = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch_size, seq + 1))).cuda()
     batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+    if cfg.enc_dec is not None:  # seeded frame embeddings, as the reference's test batches
+        batch["frames"] = torch.randn((batch_size, cfg.enc_dec.n_audio_ctx, cfg.d_model),
+                                      generator=torch.Generator(device="cuda").manual_seed(5),
+                                      device="cuda")
 
     torch.cuda.reset_peak_memory_stats()
     state = make_train_state(model, opt_cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -1972,6 +2135,8 @@ def phase_train(torch, smi, arch, layers, batch_size, seq):
 
     if cfg.remat and cfg.remat_policy == "dots":
         readings["dots_vs_remat_off"] = _dots_parity(torch, tag, cfg, state, batch)
+    if cfg.enc_dec is not None:
+        readings["codec"] = _codec_check(torch, tag, model, state, batch)
 
     # the parity steps hold a copy of the state and the plain step's master
     # beside a step
@@ -2049,6 +2214,59 @@ def phase_train(torch, smi, arch, layers, batch_size, seq):
                 "floor": {k: floor[k] for k in ("loss", "grad_norm")},
                 "control": fault, "control_caught": len(caught)})
     return readings
+
+
+def _codec_check(torch, tag, model, state, batch):
+    """The int8 gradient codec over one step's gradients on the card: the
+    deterministic path (no error state, then the first round's error
+    carried) equals the same calls on CPU copies bit for bit; the second
+    round keeps x_hat + err = x + err_in at 1e-6; the stochastic path (a
+    card generator) lands every value on one of the two integers around
+    it."""
+    from repro_torch.bridge import leaf_names
+    from repro_torch.optim import compress_grads, quantize_int8
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
+    with torch.enable_grad():
+        loss = model.loss(params, batch)
+        grads = tree_unflatten(params, torch.autograd.grad(
+            loss, tree_leaves(params), allow_unused=True, materialize_grads=True))
+    del params, loss
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xhat, err = compress_grads(grads)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    xhat2, err2 = compress_grads(grads, err)
+    cpu = tree_map(lambda t: t.cpu(), grads)
+    cxhat, cerr = compress_grads(cpu)
+    cxhat2, cerr2 = compress_grads(cpu, cerr)
+    names = [f"{part} {n}" for part in ("x_hat", "error", "x_hat round 2", "error round 2")
+             for n in leaf_names(grads)]
+    pairs = list(zip(tree_leaves([xhat, err, xhat2, err2]),
+                     tree_leaves([cxhat, cerr, cxhat2, cerr2])))
+    differ = [n for n, (a, b) in zip(names, pairs) if not torch.equal(a.cpu(), b)]
+    # x_hat + err = x + err_in, as the reference's test holds it: atol = rtol = 1e-6
+    beyond_ef = sum(beyond(x2 + e2, g.float() + e, 1e-6, 1e-6)[1] for x2, e2, g, e in
+                    zip(tree_leaves(xhat2), tree_leaves(err2), tree_leaves(grads),
+                        tree_leaves(err)))
+    g0 = max(tree_leaves(grads), key=lambda t: t.numel())
+    q, sc = quantize_int8(g0, torch.Generator(device="cuda").manual_seed(0))
+    y = g0.float() / sc
+    off = ((q.float() != y.floor()) & (q.float() != y.floor() + 1)).sum().item()
+    n = sum(t.numel() for t in tree_leaves(grads))
+    log(f"{tag} int8 codec over the step's {len(pairs) // 4} gradient leaves ({n / 1e6:.2f} M "
+        f"values) on the card in {ms:.2f} ms: {len(differ)} of {len(pairs)} outputs differ from "
+        f"the CPU's (two rounds, x_hat and error){': ' + ', '.join(differ[:4]) if differ else ''}"
+        f"; x_hat + err = x + err_in beyond 1e-6 on {beyond_ef} values; stochastic rounding "
+        f"off its two integers on {off} of {g0.numel()}")
+    if differ or beyond_ef or off:
+        raise AssertionError(f"{tag} int8 codec on the card: {len(differ)} outputs differ from "
+                             f"the CPU's, {beyond_ef} values break error feedback, {off} values "
+                             f"rounded off their two integers")
+    return {"leaves": len(pairs) // 4, "values": n, "ms": ms, "differ_from_cpu": len(differ),
+            "error_feedback_beyond_1e-6": beyond_ef, "stochastic_off_bracket": off}
 
 
 @contextlib.contextmanager
@@ -2590,6 +2808,7 @@ def main() -> int:
                                         "rwkv6_scan": "rwkv6"}.get(row["name"]))
         if row["name"] == "flash_attention_fwd":
             row["grad_parity_mla_d192"] = grads["attention_mla"]
+            row["grad_parity_full"] = grads["attention_full"]
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution (PyTorch port).
 
-The ids and aliases are the reference package's.  Each ported module
-defines ``full()`` (the published configuration) and ``smoke()`` (a
-reduced same-family config that runs on the CPU).  Only the ids in
-``PORTED`` have a module so far; ``get_config`` refuses the others, naming
-what each still lacks (``UNPORTED``).
+The ids and aliases are the reference package's.  Each module defines
+``full()`` (the published configuration) and ``smoke()`` (a reduced
+same-family config that runs on the CPU).  Every id is in ``PORTED``;
+``get_config`` would refuse an id in ``UNPORTED`` (none is left), naming
+what it lacks.
 """
 
 from __future__ import annotations
@@ -40,9 +40,10 @@ ALIASES = {
 }
 
 PORTED = ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b", "gemma_2b", "gemma_7b",
-          "command_r_35b", "qwen2_vl_7b", "granite_moe_3b_a800m", "deepseek_v2_236b")
-# what models/config.check_supported would refuse in the remaining arch
-UNPORTED = {"whisper_tiny": "enc_dec, mlp_act=gelu_mlp"}
+          "command_r_35b", "qwen2_vl_7b", "granite_moe_3b_a800m", "deepseek_v2_236b",
+          "whisper_tiny")
+# arch id -> what the port still lacks for it: none is left
+UNPORTED: dict = {}
 
 
 def resolve(arch: str) -> str:

@@ -3,11 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         [--smoke] [--batch 4] [--prompt-len 32] [--gen 16] [--device cuda]
 
-``--arch`` takes the ported ids: tinyllama-1.1b, zamba2-1.2b, rwkv6-7b,
-gemma-2b, gemma-7b, command-r-35b, qwen2-vl-7b, granite-moe-3b-a800m,
-deepseek-v2-236b (whose full 60 layers do not fit one card).  A ``visual_stub`` config
-(qwen2-vl-7b) gets seeded random patch embeddings (batch, 8, d_model) in
-place of a vision frontend, spliced over the first 8 prompt slots.  On
+``--arch`` takes every id of the reference: tinyllama-1.1b, zamba2-1.2b,
+rwkv6-7b, gemma-2b, gemma-7b, command-r-35b, qwen2-vl-7b,
+granite-moe-3b-a800m, deepseek-v2-236b (whose full 60 layers do not fit
+one card), whisper-tiny.  A ``visual_stub`` config (qwen2-vl-7b) gets
+seeded random patch embeddings (batch, 8, d_model) in place of a vision
+frontend, spliced over the first 8 prompt slots; an ``enc_dec`` config
+(whisper-tiny) gets seeded random fp32 frame embeddings (batch,
+n_audio_ctx, d_model) in place of the audio conv stem.  On
 the CPU the SSM archs follow the reference's chunked scans, which need the
 prompt to be a multiple of the chunk (128 for Mamba2, 64 for RWKV6) or
 shorter than it; the CUDA kernels take any prompt length.  Prints the warm
@@ -52,7 +55,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     help="tinyllama-1.1b, zamba2-1.2b, rwkv6-7b, gemma-2b, gemma-7b, "
-                         "command-r-35b, qwen2-vl-7b, granite-moe-3b-a800m or deepseek-v2-236b")
+                         "command-r-35b, qwen2-vl-7b, granite-moe-3b-a800m, deepseek-v2-236b "
+                         "or whisper-tiny")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -70,6 +74,9 @@ def main(argv=None) -> None:
     if cfg.visual_stub:
         batch["visual_embeds"] = torch.randn((args.batch, N_IMG, cfg.d_model), generator=gen,
                                              device=dev)
+    if cfg.enc_dec is not None:
+        batch["frames"] = torch.randn((args.batch, cfg.enc_dec.n_audio_ctx, cfg.d_model),
+                                      generator=gen, device=dev)
 
     generate = make_generate_loop(model, args.gen)
     max_len = args.prompt_len + args.gen + 1
@@ -89,6 +96,9 @@ def main(argv=None) -> None:
     if cfg.visual_stub:
         print(f"[serve] visual embeddings {tuple(batch['visual_embeds'].shape)} over the "
               f"first {N_IMG} prompt slots")
+    if cfg.enc_dec is not None:
+        print(f"[serve] audio frame embeddings {tuple(batch['frames'].shape)} through the "
+              f"encoder")
     print("[serve] sample:", toks[0, :12].tolist())
     print("[serve] kernel launches (warm run):", ops.launch_counts())
     prefill = make_prefill_step(model, max_len)

@@ -24,14 +24,17 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
 
     The loss is differentiated with respect to fresh leaves that share the
     stored params' buffers, so the stored state carries no autograd flags;
-    AdamW then writes the new values into the state's buffers.  The metrics
-    are 0-d tensors on the params' device; nothing waits for the device.
+    AdamW then writes the new values into the state's buffers.  A leaf the
+    loss never reads (the plain GELU MLP's ``wg``) gets a zero gradient, as
+    in the reference.  The metrics are 0-d tensors on the params' device;
+    nothing waits for the device.
     """
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
         with torch.enable_grad():
             loss = model.loss(params, batch)
-            grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params)))
+            grads = tree_unflatten(params, torch.autograd.grad(
+                loss, tree_leaves(params), allow_unused=True, materialize_grads=True))
         new_params, new_opt, metrics = adamw_update(opt_cfg, state["params"], grads,
                                                     state["opt"])
         metrics = dict(metrics, loss=loss.detach())

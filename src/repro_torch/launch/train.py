@@ -9,7 +9,9 @@ Wires every subsystem together: synthetic shard generation (once),
 foreactor-speculated batch loading, the train step on one device,
 write-behind foreactor-backed checkpointing with restore-on-start,
 straggler accounting.  ``--kill-at N`` aborts at step N to exercise the
-crash/restore path (rerun the same command to resume).
+crash/restore path (rerun the same command to resume).  The batches hold
+tokens only, so ``enc_dec`` and ``visual_stub`` configs (whisper-tiny,
+qwen2-vl-7b) are refused, as the reference's driver refuses them.
 
 Runs on the card unless ``--device cpu`` is given; with no card and no
 ``--device cpu`` it raises.  The checkpoints are the reference package's
@@ -66,6 +68,9 @@ def main(argv=None) -> None:
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.enc_dec is not None or cfg.visual_stub:  # as the reference's driver refuses
+        raise SystemExit("train driver covers LM archs: its batches hold tokens only, "
+                         "no audio frames or visual embeddings")
     model = build_model(cfg)
     device = OSDevice()
     fa = Foreactor(device=device, backend="io_uring", depth=32)

@@ -211,6 +211,6 @@ def chunked_softmax_xent(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
 def act_fn(name: str):
     if name in ("silu", "swiglu"):
         return F.silu
-    if name in ("gelu", "geglu"):  # gelu_mlp (Whisper's plain MLP) is not ported yet
+    if name in ("gelu", "geglu", "gelu_mlp"):  # the tanh GELU, as the reference's
         return lambda x: F.gelu(x, approximate="tanh")
     raise ValueError(name)

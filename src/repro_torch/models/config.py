@@ -142,32 +142,34 @@ _BLOCK_CONFIGS = {"mla": "mla", "mamba2": "mamba", "rwkv6": "rwkv"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for any feature the port lacks so far,
+    """Raise ``NotImplementedError`` for a setting the port does not know,
     and ``ValueError`` for a block kind without its sub-config.
 
-    The port covers the dense GQA/MQA decoders (RMSNorm or LayerNorm, the
-    unit-offset norm, scaled and tied embeddings, qkv biases, parallel
-    blocks, standard RoPE or M-RoPE with a stubbed visual frontend, gated
-    SiLU or GELU MLPs, a softcapped head), multi-head latent attention
-    (DeepSeek-V2's MLA), mixture-of-experts FFNs (routed and shared
-    experts, leading dense layers), Mamba2 blocks with a shared attention
-    block (Zamba2) and RWKV6 blocks, under either remat policy
-    (``"dots"``; any other name means nothing saved, as in the reference).
-    The encoder-decoder and the plain GELU MLP (Whisper) wait for a later
-    slice, and refusing them here keeps a config from silently running a
-    different model.
+    The port covers every branch of the reference: the dense GQA/MQA
+    decoders (RMSNorm or LayerNorm, the unit-offset norm, scaled and tied
+    embeddings, qkv biases, parallel blocks, standard RoPE, M-RoPE with a
+    stubbed visual frontend or no position encoding, gated SiLU or GELU
+    MLPs and the plain two-layer GELU MLP, a softcapped head), multi-head
+    latent attention (DeepSeek-V2's MLA), mixture-of-experts FFNs (routed
+    and shared experts, leading dense layers), Mamba2 blocks with a shared
+    attention block (Zamba2), RWKV6 blocks and the Whisper
+    encoder-decoder (``enc_dec``), under either remat policy (``"dots"``;
+    any other name means nothing saved, as in the reference).  A name
+    outside these (a block kind, ``rope_type``, ``norm`` or ``mlp_act``)
+    is refused here, so that a config never silently runs a different
+    model.
     """
-    unported = sorted(set(cfg.blocks) - set(_PORTED_BLOCKS))
+    unknown = sorted(set(cfg.blocks) - set(_PORTED_BLOCKS))
     missing = [name for name, on in (
-        ("enc_dec", cfg.enc_dec is not None),
-        ("block kinds " + ",".join(unported), bool(unported)),
+        ("block kinds " + ",".join(unknown), bool(unknown)),
         ("rope_type=" + cfg.rope_type, cfg.rope_type not in ("standard", "mrope", "none")),
         ("norm=" + cfg.norm, cfg.norm not in ("rmsnorm", "layernorm")),
-        ("mlp_act=" + cfg.mlp_act, cfg.mlp_act not in ("silu", "swiglu", "gelu", "geglu")),
+        ("mlp_act=" + cfg.mlp_act,
+         cfg.mlp_act not in ("silu", "swiglu", "gelu", "geglu", "gelu_mlp")),
     ) if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet: {', '.join(missing)}")
+            f"{cfg.name}: not supported: {', '.join(missing)}")
     for kind, sub in _BLOCK_CONFIGS.items():
         if kind in cfg.blocks and getattr(cfg, sub) is None:
             raise ValueError(f"{cfg.name}: {kind} blocks need cfg.{sub}")

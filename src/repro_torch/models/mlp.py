@@ -1,5 +1,6 @@
-"""Feed-forward blocks: gated MLPs (SwiGLU or GeGLU) and mixture-of-experts,
-twins of the reference's ``mlp_*`` and ``moe_*``.
+"""Feed-forward blocks: gated MLPs (SwiGLU or GeGLU), Whisper's plain
+two-layer GELU MLP and mixture-of-experts, twins of the reference's
+``mlp_*`` and ``moe_*``.
 
 The MoE layer is the reference's capacity dispatch (Switch/t5x style):
 each token picks its top-k experts, its position inside an expert's buffer
@@ -13,8 +14,8 @@ groups sit on a leading axis, where the reference vmaps over them.
 ``dropless`` configs take the reference's exact path instead: sort the
 assignments by expert and run a grouped matmul (its ``ragged_dot``).
 
-The plain two-layer GELU MLP is not ported yet (``config.check_supported``
-refuses it).
+The plain MLP (``mlp_act="gelu_mlp"``) keeps the gated MLP's tree, as the
+reference does: ``wg`` is made and never read, so its gradient is zero.
 """
 
 from __future__ import annotations
@@ -46,8 +47,9 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator,
 
 
 def mlp_apply(cfg: ModelConfig, p: Tensors, x: torch.Tensor) -> torch.Tensor:
-    act = act_fn(cfg.mlp_act)
-    h = act(x @ p["wi"].to(x.dtype)) * (x @ p["wg"].to(x.dtype))
+    h = act_fn(cfg.mlp_act)(x @ p["wi"].to(x.dtype))
+    if cfg.mlp_act != "gelu_mlp":  # gated; gelu_mlp is the plain 2-layer MLP (Whisper)
+        h = h * (x @ p["wg"].to(x.dtype))
     return h @ p["wo"].to(x.dtype)
 
 

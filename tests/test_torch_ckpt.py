@@ -6,7 +6,8 @@ JAX package's.
 * restores across the packages: bf16 leaves bit for bit, both ways, and
   delta chains whose members alternate between the packages; a tied-head
   (gemma-2b smoke) train state both ways; a granite-moe smoke train state
-  (fp32 router beside bf16 experts) both ways;
+  (fp32 router beside bf16 experts) both ways; a whisper-smoke train
+  state (lists of layers, not stacked) both ways;
 * the write-behind snapshot is a copy: the state is written into in place,
   as the port's AdamW does, before the background writer reads a byte;
 * the port saves and restores bf16 without ``ml_dtypes``;
@@ -234,10 +235,11 @@ def test_tied_train_state_restores_across_packages(tmp_path, writer):
     tm.fa.shutdown()
 
 
-def _restore_across_packages(tmp_path, writer, arch, step):
+def _restore_across_packages(tmp_path, writer, arch, step, mgr=MGR):
     """A smoke train state of ``arch`` with bf16 params, saved at ``step``
-    by one package and restored by the other, bit for bit, its leaf names
-    the same on both sides; (the port's state, the restored state)."""
+    by one package and restored by the other (both managers built with
+    ``mgr``), bit for bit, its leaf names the same on both sides; (the
+    port's state, the restored state)."""
     from dataclasses import replace
 
     from repro.configs import get_config as jget_config
@@ -257,8 +259,8 @@ def _restore_across_packages(tmp_path, writer, arch, step):
                               AdamWConfig(), torch.Generator().manual_seed(2))
     assert bridge.leaf_names(tstate) == [
         jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_leaves_with_path(jstate)]
-    jm = JManager(JOS(), str(tmp_path), **MGR)
-    tm = CheckpointManager(OSDevice(), str(tmp_path), **MGR)
+    jm = JManager(JOS(), str(tmp_path), **mgr)
+    tm = CheckpointManager(OSDevice(), str(tmp_path), **mgr)
     if writer == "jax":
         jm.save(step, jstate)
         want = jax.tree.map(np.asarray, jstate)
@@ -307,6 +309,26 @@ def test_mla_train_state_restores_across_packages(tmp_path, writer):
                        layers[1]["attn"]["kv_norm"]["scale"], layers[1]["ffn"]["router"],
                        layers[1]["ffn"]["shared"]["wo"]) == \
             ["bfloat16", "bfloat16", "bfloat16", "float32", "bfloat16"]
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_whisper_train_state_restores_across_packages(tmp_path, writer):
+    """A whisper-smoke train state with bf16 params, whose layers are lists
+    of per-layer dicts (not stacked), saved by one package and restored by
+    the other, bit for bit, its leaf names and dtypes the same on both
+    sides.  The learned decoder positions are 32776 rows whatever the
+    config (4 MiB of bf16, 8 MiB a moment in fp32), so the extents here are
+    64 KiB, not 64 bytes: still many a leaf, over three shards."""
+    tstate, got = _restore_across_packages(tmp_path, writer, "whisper-tiny", 9,
+                                           dict(MGR, chunk_bytes=1 << 16))
+    for state in (tstate, got):
+        params = state["params"]
+        assert isinstance(params["enc_layers"], list) and len(params["enc_layers"]) == 2
+        assert isinstance(params["dec_layers"], list) and len(params["dec_layers"]) == 2
+        assert tuple(params["pos_dec"].shape) == (32776, 64)
+        assert _dtypes(params["dec_layers"][1]["xattn"]["wk"], params["enc_norm"]["bias"],
+                       state["opt"]["master"]["dec_layers"][0]["mlp"]["wg"]) == \
+            ["bfloat16", "bfloat16", "float32"]
 
 
 class _GatedMem(MemDevice):

@@ -65,6 +65,28 @@ def test_cuda_flash_attention_tile_edges_on_the_card():
 
 
 @pytest.mark.cuda
+def test_cuda_flash_attention_full_on_the_card():
+    """The flash kernel full (non-causal), as the encoder-decoder calls it:
+    S = T across the tile edges (the encoder) and S < T with a ragged last
+    key tile (the cross-attention), in bf16 and fp32, against its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        for B, H, KV, S, T, D in ((2, 6, 6, 47, 150, 64), (1, 6, 6, 300, 300, 64),
+                                  (2, 6, 6, 129, 1500, 64)):
+            q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype).transpose(1, 2)
+            k = torch.randn(B, T, KV, D, generator=g, device="cuda").to(dtype).transpose(1, 2)
+            v = torch.randn(B, T, KV, D, generator=g, device="cuda").to(dtype).transpose(1, 2)
+            before = fa.launches
+            got = fa.flash_attention_fwd(q, k, v, False)
+            assert fa.launches == before + 1
+            torch.testing.assert_close(got, fa.attention_plain(q, k, v, False),
+                                       atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_mla_call_on_the_card():
     """MLA's prefill call at a small shape: head_dim 192 (qk_nope 128 +
     qk_rope 64), V 128 wide zero-padded to 192, scale 192^-0.5, causal and

@@ -114,13 +114,17 @@ def within_fp32_bound(got, exact, bound):
     (1, 4, 2, 128, 128, 256, True),    # gemma-size head_dim
     (1, 4, 4, 128, 128, 192, True),    # MLA's qk_nope + qk_rope, MHA
     (1, 4, 4, 128, 128, 192, False),
+    (2, 6, 6, 47, 150, 64, False),     # whisper's cross-attention: full, S < T, both ragged
 ])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_flash_attention_matches_pallas_interpret(B, H, KV, S, T, D, causal, dtype):
     rng = np.random.default_rng(0)
     (jq, q), (jk, k), (jv, v) = (rnd(rng, (B, H, S, D), dtype), rnd(rng, (B, KV, T, D), dtype),
                                  rnd(rng, (B, KV, T, D), dtype))
-    want = j_flash_attention_fwd(jq, jk, jv, causal, block_q=64, block_k=64, interpret=True)
+    # the Pallas kernel takes lengths that its blocks divide: blocks of 64,
+    # else the largest divisor below (47 rows in one block, 150 keys in 3 of 50)
+    bq, bk = (max(d for d in range(1, 65) if n % d == 0) for n in (S, T))
+    want = j_flash_attention_fwd(jq, jk, jv, causal, block_q=bq, block_k=bk, interpret=True)
     got = fa.flash_attention_fwd(q, k, v, causal)
     assert got.dtype == q.dtype and got.shape == q.shape
     outs = (got, ops.attention(q, k, v, causal, impl="cuda"))

@@ -12,7 +12,7 @@ decode-vs-forward check tightened twentyfold).
 import os
 import subprocess
 import sys
-from dataclasses import replace
+from dataclasses import fields, replace
 from pathlib import Path
 
 import jax
@@ -26,7 +26,7 @@ from repro.launch.steps import make_generate_loop as jmake_generate_loop
 from repro.models import build_model as jbuild_model
 from repro.models.common import lm_head_logits as j_lm_head_logits
 from repro_torch import bridge
-from repro_torch.configs import ARCH_IDS, PORTED, get_config
+from repro_torch.configs import ARCH_IDS, PORTED, UNPORTED, get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.launch.steps import make_decode_step, make_generate_loop, make_prefill_step
@@ -184,14 +184,16 @@ def test_serve_without_gpu_raises(monkeypatch):
         serve.main(["--smoke"])
 
 
-# Config branches on the tinyllama smoke config: the first fourteen are
+# Config branches on the tinyllama smoke config: the first sixteen are
 # ported and held against JAX (leaf names, full logits, prefill and two
 # decode steps; the MoE branch on its capacity path, with the train capacity
 # in the full logits and the serve capacity in prefill and decode, as the
 # reference; an attn layer followed by an MLA layer, whose head_dim
 # qk_nope + qk_rope = 32 differs from the attn layer's 16; an MLA config
-# beside attn blocks only, which no layer reads); the rest are refused by
-# name.
+# beside attn blocks only, which no layer reads; the encoder-decoder, over
+# 1500 frame embeddings, with prefill and decode steps and no full logits,
+# which it lacks; the plain GELU MLP); the rest are settings no package
+# knows, which the port must refuse by name.
 BRANCHES = [
     dict(norm="layernorm"), dict(norm_unit_offset=True), dict(scale_embed=True),
     dict(logit_softcap=30.0), dict(qkv_bias=True), dict(tie_embeddings=True),
@@ -202,15 +204,16 @@ BRANCHES = [
          mla=MLAConfig(q_lora=64, kv_lora=32, qk_nope=16, qk_rope=16, v_head=16)),
     dict(mla=MLAConfig()),
     dict(enc_dec=EncDecConfig()), dict(mlp_act="gelu_mlp"),
+    dict(rope_type="yarn"),
 ]
-N_PORTED_BRANCHES = 14
+N_PORTED_BRANCHES = 16
 
 
 @pytest.mark.parametrize("change", BRANCHES)
 def test_config_branch_matches_jax_or_raises(change):
     cfg = replace(get_config("tinyllama-1.1b", smoke=True), **change)
     if BRANCHES.index(change) >= N_PORTED_BRANCHES:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="not supported"):
             build_model(cfg)
         return
     jcfg = replace(jget_config("tinyllama-1.1b", smoke=True), **change)
@@ -222,12 +225,19 @@ def test_config_branch_matches_jax_or_raises(change):
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
     if cfg.visual_stub:
         batch["visual_embeds"] = rng.normal(size=(B, 8, cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec is not None:
+        batch["frames"] = rng.normal(size=(B, cfg.enc_dec.n_audio_ctx, cfg.d_model)) \
+            .astype(np.float32)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: torch.from_numpy(v).long() if k == "tokens" else torch.from_numpy(v)
           for k, v in batch.items()}
     jmodel, model = jbuild_model(jcfg), build_model(cfg)
-    with torch.inference_mode():
-        close(model.logits(params, tb), jmodel.logits(jparams, jb))
+    assert model.is_enc_dec == jmodel.is_enc_dec
+    if model.is_enc_dec:
+        assert model.logits is None
+    else:
+        with torch.inference_mode():
+            close(model.logits(params, tb), jmodel.logits(jparams, jb))
     jlogits, jcache = jax.jit(jmodel.prefill, static_argnums=2)(jparams, jb, MAX_LEN)
     logits, cache = make_prefill_step(model, MAX_LEN)(params, tb)
     close(logits, jlogits)
@@ -241,13 +251,28 @@ def test_config_branch_matches_jax_or_raises(change):
 
 
 def test_unported_archs_raise():
+    """Every arch id is ported (``UNPORTED`` is empty); whisper-tiny's full
+    config is the reference's field for field; each full config builds."""
     assert PORTED == ("tinyllama_1_1b", "zamba2_1_2b", "rwkv6_7b", "gemma_2b", "gemma_7b",
                       "command_r_35b", "qwen2_vl_7b", "granite_moe_3b_a800m",
-                      "deepseek_v2_236b")
-    unported = [arch for arch in ARCH_IDS if arch not in PORTED]
-    assert unported == ["whisper_tiny"]
-    with pytest.raises(NotImplementedError, match="enc_dec"):
-        get_config("whisper-tiny")
+                      "deepseek_v2_236b", "whisper_tiny")
+    assert sorted(PORTED) == sorted(ARCH_IDS) and UNPORTED == {}
+    for smoke in (False, True):
+        cfg, jcfg = get_config("whisper-tiny", smoke), jget_config("whisper-tiny", smoke)
+        for f in fields(jcfg):
+            want = getattr(jcfg, f.name)
+            if f.name in ("attn_impl", "scan_impl"):  # the port's impl selector is "auto"
+                assert getattr(cfg, f.name) == "auto" and want == "ref"
+            elif f.name == "enc_dec":
+                assert (cfg.enc_dec.n_enc_layers, cfg.enc_dec.n_audio_ctx) == \
+                    (want.n_enc_layers, want.n_audio_ctx)
+            else:
+                assert getattr(cfg, f.name) == want, f.name
+    cfg = get_config("whisper-tiny")
+    assert (cfg.d_model, cfg.n_layers, cfg.enc_dec.n_enc_layers, cfg.n_heads, cfg.hd,
+            cfg.d_ff, cfg.vocab_size, cfg.enc_dec.n_audio_ctx) == \
+        (384, 4, 4, 6, 64, 1536, 51865, 1500)
+    assert build_model(cfg).is_enc_dec
     cfg = get_config("deepseek-v2-236b")
     assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads) == (5120, 60, 128, 128)
     m = cfg.mla
