@@ -129,7 +129,21 @@ Phases, each of which raises on failure (nothing is caught):
              memory.  Then at the smoke size a resume from the write-behind
              checkpoint, which must hold, and the same with a planted
              snapshot of views, which must be rejected.
-9. report  — one ``kernels`` JSON line, the nvidia-smi line, and the result
+9. dryrun  — the dry-run (``repro_torch.launch.dryrun``) against the card:
+             a one-rank NCCL group (``HashStore``, no address) and its (1, 1)
+             ``DeviceMesh``, on which tinyllama-1.1b's bf16 params are laid
+             out by ``param_specs`` (every local shard equal to its tensor
+             bit for bit, their bytes the dry-run's resident bytes); the
+             reckoned resident bytes of its train state (batch 8 x 1024)
+             and of its params (prefill, batch 8 x 1000) against the bytes
+             they take on the card, within the allocator's rounding of
+             each leaf; the traced temporary peak (plain path) beside the
+             real step's (kernel path); the counted dot FLOPs beside
+             ``model_flops`` and the model-FLOP share of the datasheet peak
+             at the median step time; then three production cells planned
+             on 16x16 (HBM a device against the card's, the roofline's
+             dominant term and bound).
+10. report — one ``kernels`` JSON line, the nvidia-smi line, and the result
              line ``{"ok": true, "device": {...}}`` last.  Every phase's
              seconds are printed (``[time]``).
 
@@ -153,10 +167,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# the port, from the checkout this script sits in (after any tree a caller put first)
+sys.path.append(str(SRC))
+try:
+    from repro_torch.analysis.roofline import HW
+except ModuleNotFoundError:  # not in a checkout of the repository: main() refuses to run
+    HW = None
 
-# datasheet peaks of the H100 SXM (NVIDIA), used for the bound columns
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+# the card's one record: the H100 SXM's datasheet peaks (NVIDIA), for the bound columns
+H100 = HW() if HW else None
 L2_BYTES = 50 * 2 ** 20
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # atol = rtol, as the reference's kernel tests
@@ -348,7 +367,7 @@ def device_ms(torch, fn, inputs, iters=30, warmup=3):
 
 
 def bound(flops, nbytes, peak_flops):
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / H100.hbm_bw * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -593,7 +612,7 @@ def phase_kernels(torch):
                                  nbytes)
         # the (query, key) pairs computed: query i sees keys <= i + T - S when causal
         pairs = sum(max(0, min(T, i + T - S + 1)) for i in range(S)) if causal else S * T
-        t_bound, by = bound(4 * B * H * D * pairs, nbytes, PEAK_BF16_FLOPS)
+        t_bound, by = bound(4 * B * H * D * pairs, nbytes, H100.peak_flops)
         row = {
             "shape": f"B={B} H={H} KV={KV} S={S} T={T} D={D} {'causal' if causal else 'full'} "
                      f"bf16" + (f", V zero-padded from {dv}" if dv else ""),
@@ -635,7 +654,7 @@ def phase_kernels(torch):
         sdpa_in = [(q[:, :, None], k, v, (torch.arange(T, device="cuda")[None, :]
                                           < ln[:, None])[:, None, None])
                    for q, k, v, ln in dec_in]
-        t_bound, by = bound(4 * H * D * sum(length), nbytes, PEAK_BF16_FLOPS)
+        t_bound, by = bound(4 * H * D * sum(length), nbytes, H100.peak_flops)
         ms, host_us = device_ms(torch, dec.flash_decode, dec_in)
         lib_ms, lib_host_us = device_ms(torch, lambda q, k, v, mask: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), sdpa_in)
@@ -1107,7 +1126,7 @@ def phase_scans(torch):
     L, nc = m2.CHUNK, -(-S // m2.CHUNK)
     flops = B * nc * (G * 2 * L * L * N + H * (2 * L * L * P + 4 * L * P * N))
     m_in = copies_beyond_l2(lambda: _mamba_inputs(torch, gen, *main_m, bf)[:5], nbytes)
-    m_bound, m_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    m_bound, m_by = bound(flops, nbytes, H100.peak_flops)
     m_row = {
         "name": "mamba2_scan", "route": "cuda", "source": "src/repro_torch/csrc/mamba2_scan.cu",
         "replaces": "src/repro/kernels/mamba2_scan.py:100",
@@ -1132,7 +1151,7 @@ def phase_scans(torch):
     pairs = L * (L - 1) // 2
     flops = B * H * nc * (4 * pairs * K + 3 * L * K + 4 * L * K * K + 2 * pairs * K + 2 * L * K)
     r_in = copies_beyond_l2(lambda: _rwkv_inputs(torch, gen, *main_r, bf)[:5], nbytes)
-    r_bound, r_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    r_bound, r_by = bound(flops, nbytes, H100.peak_flops)
     r_row = {
         "name": "rwkv6_scan", "route": "cuda", "source": "src/repro_torch/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:95",
@@ -1298,7 +1317,7 @@ def phase_main(torch, smi, arch, prompt, layers):
                                  f"expected {shape} {dname}")
     n_params = sum(t.numel() for t in tree_leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    floor_ms = n_bytes / PEAK_BYTES * 1e3
+    floor_ms = n_bytes / H100.hbm_bw * 1e3
     log(f"{tag} {n_params / 1e9:.3f} B parameters ({n_bytes / 1e9:.2f} GB) initialised on "
         f"the card in {t_init:.1f} s (peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
         f"allocated); reading them once takes {floor_ms:.3f} ms at the datasheet rate (the "
@@ -2757,6 +2776,231 @@ def phase_trainer(torch, smi):
     return readings
 
 
+# the dry-run's memory and FLOP model against the card: tinyllama-1.1b's
+# train step at phase train's shape and its prefill at phase main's
+DRYRUN_ARCH = "tinyllama-1.1b"
+DRYRUN_TRAIN = (8, 1024)   # batch, seq
+DRYRUN_PREFILL = (8, 1000)  # batch, prompt
+DRYRUN_STEPS = 5           # a warm-up step, then the timed ones (median)
+# production cells planned on 16x16.  deepseek-v2-236b's prefill_32k is left
+# out for time: its trace dispatches 3.9 M ops through the plain blockwise
+# attention (minutes on the CPU, PERF.md)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"), ("command-r-35b", "decode_32k"),
+                ("zamba2-1.2b", "long_500k"))
+ALLOC_SPLIT = 1 << 20  # the caching allocator splits off no remainder of this or less
+
+
+def _bitwise_equal(torch, a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _allocated(torch, make):
+    """(make()'s result, the bytes it left allocated on the card, and the
+    bytes those allocations asked for)."""
+    def now():
+        gc.collect()
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+    a0, r0 = now()
+    out = make()
+    a1, r1 = now()
+    return out, a1 - a0, r1 - r0
+
+
+def _check_resident(tag, what, reckoned, allocated, requested, leaves):
+    """Reckoned bytes against the card: equal to the bytes the leaves asked
+    for; the allocator's blocks round each up to 512 B, and a block of a
+    large segment keeps a remainder of up to 1 MiB it does not split off."""
+    slack = sum(512 if n <= ALLOC_SPLIT else ALLOC_SPLIT + 512 for n in leaves)
+    log(f"{tag} {what}: reckoned {reckoned:,} B, requested {requested:,} B, allocated "
+        f"{allocated:,} B (+{allocated - reckoned:,} B over {len(leaves)} leaves, the "
+        f"allocator's rounding at most {slack:,} B)")
+    if requested != reckoned or not 0 <= allocated - reckoned <= slack:
+        raise AssertionError(f"{tag} {what}: reckoned {reckoned:,} B, requested "
+                             f"{requested:,} B, allocated {allocated:,} B")
+
+
+def phase_dryrun(torch, smi):
+    """The dry-run (``repro_torch.launch.dryrun``) against the card: a world
+    of one, its memory model and FLOP count against a real step, and the
+    production plan of a few cells on 16x16, inside a one-rank NCCL group
+    (``HashStore``: no address, no network) destroyed at the end."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        return _dryrun_checks(torch, smi)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dryrun_checks(torch, smi):
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.bridge import leaf_names
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.dryrun import (cell_specs, make_cell, plan,
+                                           resident_bytes_per_device, trace_cell)
+    from repro_torch.launch.mesh import AbstractMesh, make_host_mesh, make_production_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    tag = "[dryrun]"
+    t_phase = time.perf_counter()
+    readings = {"arch": DRYRUN_ARCH}
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+    model = build_model(get_config(DRYRUN_ARCH))
+    one = AbstractMesh(("data", "model"), (1, 1))
+
+    # 1. a world of one: the params laid out on a (1, 1) DeviceMesh by their specs
+    dmesh = make_host_mesh()
+    if tuple(dmesh.shape) != (1, 1) or dmesh.mesh_dim_names != ("data", "model"):
+        raise AssertionError(f"{tag} host mesh {dmesh}, expected (1, 1) over data, model")
+    with torch.device("meta"):
+        meta = model.init(torch.Generator())
+    params = model.init(gen())
+    dparams = shd.distribute(params, shd.param_specs(params, dmesh), dmesh)
+    local = [d.to_local() for d in tree_leaves(dparams)]
+    differ = [n for n, t, l in zip(leaf_names(params), tree_leaves(params), local)
+              if not _bitwise_equal(torch, t, l)]
+    reckoned = resident_bytes_per_device([meta], [shd.param_specs(meta, dmesh)], dmesh)
+    shards = sum(l.numel() * l.element_size() for l in local)
+    log(f"{tag} world of one: {dmesh}; {len(local)} param leaves distributed, local "
+        f"shards equal bit for bit: {not differ}; resident {reckoned:,} B reckoned, "
+        f"{shards:,} B in the local shards")
+    if differ:
+        raise AssertionError(f"{tag} local shards differ from their tensors: {differ[:5]}")
+    if reckoned != shards:
+        raise AssertionError(f"{tag} reckoned resident {reckoned:,} B != local shards "
+                             f"{shards:,} B")
+    readings["world_of_one"] = {"leaves": len(local), "resident_bytes": reckoned}
+    del params, dparams, local
+
+    # 2. + 3. the train step: reckoned against allocated, counted FLOPs against model_flops
+    B, S = DRYRUN_TRAIN
+    shape = ShapeSpec(f"train_{B}x{S}", S, B, "train")
+    t0 = time.perf_counter()
+    cell = trace_cell(make_cell(DRYRUN_ARCH, shape))
+    trace_s = time.perf_counter() - t0
+    rep = plan(cell, one)
+    res_state = resident_bytes_per_device([cell.trees["state"]],
+                                          [cell_specs(cell, one)["state"]], one)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+    state, alloc_state, req_state = _allocated(
+        torch, lambda: make_train_state(model, opt_cfg, gen()))
+    _check_resident(f"{tag} train {B}x{S}", "params + optimizer state", res_state, alloc_state,
+                    req_state, [t.numel() * t.element_size() for t in tree_leaves(state)])
+    rng = np.random.default_rng(4)
+    seqs = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (B, S + 1))
+                            .astype(np.int32)).cuda()
+    batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+    step = make_train_step(model, opt_cfg)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DRYRUN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    temp = torch.cuda.max_memory_allocated() - base
+    step_s = statistics.median(times[1:])
+    mflops = model_flops(model.cfg, shape, "train")
+    dots = cell.cost.dot_flops
+    share = mflops / step_s / H100.peak_flops
+    log(f"{tag} train {B}x{S}: resident {rep['memory']['resident_bytes_per_device'] / 1e9:.3f} "
+        f"GB + traced temporaries {cell.cost.peak_bytes / 1e9:.3f} GB (the plain path; trace "
+        f"{trace_s:.1f} s) = {rep['memory']['hbm_bytes_per_device'] / 1e9:.3f} GB reckoned; "
+        f"on the card (kernel path): {alloc_state / 1e9:.3f} GB state + {temp / 1e9:.3f} GB "
+        f"peak above it over {DRYRUN_STEPS} steps = {(alloc_state + temp) / 1e9:.3f} GB")
+    log(f"{tag} train {B}x{S}: counted dot FLOPs {dots:.4e}, model_flops {mflops:.4e} "
+        f"(ratio {dots / mflops:.4f}); step {step_s * 1e3:.2f} ms (median of steps 2-"
+        f"{DRYRUN_STEPS}: {[round(t * 1e3, 2) for t in times]}); model-FLOP share of the "
+        f"{H100.peak_flops / 1e12:.0f} TFLOP/s datasheet peak: {share:.4f} (counted FLOPs: "
+        f"{dots / step_s / H100.peak_flops:.4f}), loss {met['loss'].item():.4f}, on {smi}")
+    if not math.isfinite(met["loss"].item()):
+        raise AssertionError(f"{tag} train loss is not finite")
+    readings["train"] = {
+        "reckoned_resident": rep["memory"]["resident_bytes_per_device"],
+        "reckoned_temp": cell.cost.peak_bytes, "allocated_state": alloc_state,
+        "reckoned_state": res_state, "measured_temp": temp, "dot_flops": dots,
+        "model_flops": mflops, "step_ms": step_s * 1e3, "model_flop_share": share}
+    del state, met, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the prefill
+    B, P = DRYRUN_PREFILL
+    shape = ShapeSpec(f"prefill_{B}x{P}", P, B, "prefill")
+    cell = trace_cell(make_cell(DRYRUN_ARCH, shape))
+    rep = plan(cell, one)
+    params, alloc_params, req_params = _allocated(torch, lambda: model.init(gen()))
+    res_params = resident_bytes_per_device([cell.trees["params"]],
+                                           [cell_specs(cell, one)["params"]], one)
+    _check_resident(f"{tag} prefill {B}x{P}", "params", res_params, alloc_params, req_params,
+                    [t.numel() * t.element_size() for t in tree_leaves(params)])
+    tokens = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (B, P))
+                              .astype(np.int32)).cuda()
+    prefill = make_prefill_step(model, P)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - base
+    log(f"{tag} prefill {B}x{P}: resident "
+        f"{rep['memory']['resident_bytes_per_device'] / 1e9:.3f} GB + traced temporaries "
+        f"{cell.cost.peak_bytes / 1e9:.3f} GB (the plain path, the cache included) = "
+        f"{rep['memory']['hbm_bytes_per_device'] / 1e9:.3f} GB reckoned; on the card (kernel "
+        f"path): {alloc_params / 1e9:.3f} GB params + {temp / 1e9:.3f} GB peak above them = "
+        f"{(alloc_params + temp) / 1e9:.3f} GB; counted dot FLOPs {cell.cost.dot_flops:.4e}, "
+        f"model_flops {model_flops(model.cfg, shape, 'prefill'):.4e}")
+    if tuple(logits.shape) != (B, model.cfg.padded_vocab) or not bool(logits.isfinite().all()):
+        raise AssertionError(f"{tag} prefill logits {tuple(logits.shape)} not finite "
+                             f"(B, V) values")
+    readings["prefill"] = {
+        "reckoned_resident": rep["memory"]["resident_bytes_per_device"],
+        "reckoned_temp": cell.cost.peak_bytes, "allocated_params": alloc_params,
+        "measured_temp": temp}
+    del params, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. production planning on 16x16
+    mesh = make_production_mesh()
+    readings["plan_16x16"] = []
+    for arch, shape_name in DRYRUN_CELLS:
+        cell = trace_cell(make_cell(arch, shape_name))
+        rep = plan(cell, mesh)
+        mem, roof = rep["memory"], rep["roofline"]
+        log(f"{tag} 16x16 {arch} {shape_name}: HBM/device {mem['hbm_bytes_per_device'] / 1e9:.3f}"
+            f" GB ({mem['resident_bytes_per_device'] / 1e9:.3f} resident + "
+            f"{mem['temp_bytes_per_device'] / 1e9:.3f} temporary) of the datasheet's "
+            f"{H100.hbm_bytes / 1e9:.0f} GB ({mem['hbm_share']:.1%}); {roof['dominant']} "
+            f"bound {roof['bound_s'] * 1e3:.3f} ms (compute {roof['compute_s'] * 1e3:.3f}, "
+            f"memory {roof['memory_s'] * 1e3:.3f}, collectives not counted); trace "
+            f"{cell.trace_s:.1f} s")
+        readings["plan_16x16"].append({"arch": arch, "shape": shape_name,
+                                       "hbm_bytes_per_device": mem["hbm_bytes_per_device"],
+                                       "dominant": roof["dominant"], "bound_s": roof["bound_s"]})
+    readings["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag} phase {readings['phase_s']:.1f} s")
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -2767,7 +3011,6 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a checkout "
               f"of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
 
     t_start = time.perf_counter()
 
@@ -2799,6 +3042,8 @@ def main() -> int:
     log("[trainer] " + json.dumps(dict(trainer, card=smi)))
     gc.collect()
     torch.cuda.empty_cache()
+    dry = timed("dryrun", phase_dryrun, torch, smi)
+    log("[dryrun] " + json.dumps(dict(dry, card=smi)))
     for row in rows:  # launches on the served, the trained and the trainer's paths together
         row["launches"] = sum(r["launches"][row["name"]] for r in results + trained + [trainer])
         row["launches_serve"] = {r["arch"]: r["launches"][row["name"]] for r in results}

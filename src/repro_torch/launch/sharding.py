@@ -1,0 +1,246 @@
+"""Sharding rules (PyTorch port): a ``Spec`` for every parameter,
+optimizer, batch and cache leaf, twin of the reference's
+``launch/sharding.py``.
+
+Strategy (DP + FSDP + TP + EP, adaptively per tensor):
+
+* batch dims shard over the data axes (("pod", "data") on the multi-pod
+  mesh), i.e. plain DP with the pod axis as an outer data axis;
+* every parameter is FSDP-sharded over "data" on its d_model-like dim and
+  TP-sharded over "model" on its heads/ffn/vocab/expert dim *when
+  divisible*: a preference list per tensor name, applied greedily with
+  axis-uniqueness and divisibility checks, so e.g. MQA (kv=1) or 28-head
+  attention simply skips the model axis instead of failing;
+* MoE experts shard over "model" (EP) when num_experts divides it, else
+  the per-expert FFN dim takes the model axis (TP-within-expert;
+  granite's 40 experts on a 16-wide axis);
+* KV caches shard batch over data and kv-heads (or head_dim, for MQA)
+  over model; SSM/RWKV states shard batch + heads.
+
+Preferences use *negative* dim indices so the same rule covers a plain
+tensor and its layer-stacked twin (the stacked layer axis leads).
+
+A ``Spec`` is a tuple with one entry per leading dimension, each ``None``,
+an axis name or a tuple of axis names (one dimension over several mesh
+axes), as ``tuple(PartitionSpec)`` is in the reference.  The rules match
+the leaves' ``keystr`` names (``tree.tree_map_with_path``), which the port
+keeps (the parity contract).  Meshes are ``launch.mesh.AbstractMesh`` or a
+``DeviceMesh``; ``placements`` and ``distribute`` turn a spec into DTensor
+placements on a ``DeviceMesh``.
+
+The reference's sharding profile is a global set before lowering and read
+by its activation constraints (``models/common.py``); here ``profile`` is
+an argument, and there is no activation constraint: eager single-process
+torch has no GSPMD to pin.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+from repro_torch.launch.mesh import abstract
+from repro_torch.tree import tree_map, tree_map_with_path
+
+Axis = Optional[Union[str, Tuple[str, ...]]]
+Spec = Tuple[Axis, ...]
+
+
+def _key(name: str) -> str:
+    """Anchor a leaf name as the final keystr component."""
+    return rf"\['{name}'\]$"
+
+
+# (path regex, [(negative_dim, role), ...]) — first match wins.
+# roles: "dp" (all data axes), "data" (FSDP axis), "model" (TP axis)
+PARAM_RULES: List[Tuple[str, List[Tuple[int, str]]]] = [
+    # vocab on "model" ONLY: sharding the d_model dim of the embedding over
+    # "data" makes the chunked loss all-reduce (B,C,V)-sized logits
+    # partial products (the reference's dry-run found it).
+    (r"embed.*tok", [(-2, "model")]),
+    (r"lm_head", [(-1, "model")]),
+    (r"pos_dec", [(-2, "data")]),
+    # attention (plain + cross)
+    (r"attn'\].*" + _key("w[qkv]"), [(-3, "data"), (-2, "model")]),
+    (r"attn'\].*" + _key("wo"), [(-3, "model"), (-1, "data")]),
+    (r"attn'\].*" + _key("b[qkv]"), [(-2, "model")]),
+    # MLA
+    (r"q_down", [(-2, "data"), (-1, "model")]),
+    (r"q_up", [(-3, "data"), (-2, "model")]),
+    (r"kv_down", [(-2, "data")]),
+    (r"[kv]_up", [(-3, "data"), (-2, "model")]),
+    # MoE (before generic ffn rules; shared experts first)
+    (r"router", [(-2, "data")]),
+    (r"shared'\].*" + _key("w[ig]"), [(-2, "data"), (-1, "model")]),
+    (r"shared'\].*" + _key("wo"), [(-2, "model"), (-1, "data")]),
+    # ffn covers MoE 3-D (E,D,F) and dense 2-D (D,F): prefs skip missing
+    # dims, and the greedy axis-unique pass resolves the rest.
+    (r"ffn'\].*" + _key("w[ig]"), [(-3, "model"), (-2, "data"), (-1, "model")]),
+    (r"ffn'\].*" + _key("wo"), [(-3, "model"), (-2, "model"), (-1, "data")]),
+    (r"mlp'\].*" + _key("w[ig]"), [(-2, "data"), (-1, "model")]),
+    (r"mlp'\].*" + _key("wo"), [(-2, "model"), (-1, "data")]),
+    # Mamba2
+    (r"mixer'\].*" + _key("in_proj"), [(-2, "data")]),
+    (r"mixer'\].*" + _key("out_proj"), [(-2, "model"), (-1, "data")]),
+    # RWKV6
+    (r"tm'\].*" + _key("w[rkvg]"), [(-2, "data"), (-1, "model")]),
+    (r"tm'\].*" + _key("wo"), [(-2, "model"), (-1, "data")]),
+    (r"tm'\].*" + _key("cm_k"), [(-2, "data"), (-1, "model")]),
+    (r"tm'\].*" + _key("cm_v"), [(-2, "model"), (-1, "data")]),
+    (r"tm'\].*" + _key("cm_r"), [(-2, "data"), (-1, "model")]),
+    (r"tm'\].*" + _key("mix_w1"), [(-2, "data")]),
+    (r"tm'\].*" + _key("mix_w2"), [(-1, "data")]),
+    (r"tm'\].*" + _key("w1"), [(-2, "data")]),
+    (r"tm'\].*" + _key("w2"), [(-1, "data")]),
+    (r"tm'\].*" + _key("u"), [(-2, "model")]),
+]
+
+#: decode caches: batch over the data axes; kv-heads over "model" when
+#: divisible, else the *sequence* dim (distributed cache for MQA /
+#: batch=1 long-context cells).
+CACHE_RULES: List[Tuple[str, List[Tuple[int, str]]]] = [
+    (r"mem_[kv]", [(-4, "dp"), (-3, "model")]),
+    (r"\bk\b|\bv\b|'k'|'v'", [(-4, "dp"), (-2, "model"), (-3, "model")]),
+    (r"ckv", [(-3, "dp"), (-1, "model"), (-2, "model")]),
+    (r"kpe", [(-3, "dp"), (-2, "model")]),
+    (r"ssm", [(-4, "dp"), (-3, "model")]),
+    (r"conv", [(-3, "dp"), (-1, "model")]),
+    (r"wkv", [(-4, "dp"), (-3, "model")]),
+    (r"tm_x|cm_x", [(-2, "dp")]),
+]
+
+
+def data_axes(mesh, profile: str = "tp") -> Tuple[str, ...]:
+    names = ["pod", "data"] + (["model"] if profile == "fsdp" else [])
+    return tuple(a for a in names if a in abstract(mesh).axis_names)
+
+
+def _axis_for(role: str, mesh, profile: str = "tp") -> Axis:
+    if role == "dp":
+        ax = data_axes(mesh, profile)
+        return ax if len(ax) > 1 else (ax[0] if ax else None)
+    return role if role in abstract(mesh).axis_names else None
+
+
+def spec_from_prefs(shape: Sequence[int], prefs: List[Tuple[int, str]],
+                    mesh, profile: str = "tp") -> Spec:
+    """Greedy, divisibility-checked, axis-unique assignment.  "dp" roles
+    degrade through a fallback chain (all data axes -> fewer)."""
+    mesh = abstract(mesh)
+    nd = len(shape)
+    assign: Dict[int, Any] = {}
+    used = set()
+    for negdim, role in prefs:
+        dim = nd + negdim
+        if dim < 0 or dim in assign:
+            continue
+        if role == "dp":
+            ax = data_axes(mesh, profile)
+            candidates = [ax[:k] for k in range(len(ax), 0, -1)]
+        else:
+            axis = _axis_for(role, mesh, profile)
+            if axis is None:
+                continue
+            candidates = [axis if isinstance(axis, tuple) else (axis,)]
+        for names in candidates:
+            if not names or any(n in used for n in names):
+                continue
+            size = 1
+            for a in names:
+                size *= mesh.shape[a]
+            if size > 1 and shape[dim] % size == 0:
+                assign[dim] = names if len(names) > 1 else names[0]
+                used.update(names)
+                break
+    return tuple(assign.get(d) for d in range(nd))
+
+
+def _tree_specs(tree: Any, rules, mesh, profile: str = "tp") -> Any:
+    def leaf_spec(name, leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        for rx, prefs in rules:
+            if re.search(rx, name):
+                return spec_from_prefs(shape, prefs, mesh, profile)
+        return ()
+
+    return tree_map_with_path(leaf_spec, tree)
+
+
+def param_specs(params: Any, mesh, profile: str = "tp") -> Any:
+    # param sharding is profile-independent: FSDP over "data" + the
+    # heads/ffn/expert dims over "model" serve both profiles (under fsdp
+    # the model-dim shard is just more parameter sharding).
+    return _tree_specs(params, PARAM_RULES, mesh)
+
+
+def opt_state_specs(opt_state: Any, params_spec: Any, mesh) -> Any:
+    """m/v/master mirror the param specs; step is replicated."""
+    out = {}
+    for k, v in opt_state.items():
+        if k == "step":
+            out[k] = ()
+        else:
+            out[k] = params_spec
+    return out
+
+
+def cache_specs(cache: Any, mesh, profile: str = "tp") -> Any:
+    return _tree_specs(cache, CACHE_RULES, mesh, profile)
+
+
+def batch_specs(batch: Any, mesh, profile: str = "tp") -> Any:
+    def leaf_spec(name, leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if not shape:
+            return ()
+        if "positions" in name and len(shape) == 3:  # (3, B, S) M-RoPE
+            return (None, *spec_from_prefs(shape[1:], [(-2, "dp")], mesh, profile))
+        return spec_from_prefs(shape, [(-len(shape), "dp")], mesh, profile)
+
+    return tree_map_with_path(leaf_spec, batch)
+
+
+def spec_leaves(specs: Any) -> List[Spec]:
+    """The specs of a spec tree in flatten order (dict keys sorted, lists in
+    order): the order of ``tree.tree_leaves`` over the tree they describe."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [s for v in specs for s in spec_leaves(v)]
+    return [specs]
+
+
+def shard_count(spec: Spec, mesh) -> int:
+    """How many pieces a leaf is cut into: the product of the sizes of the
+    mesh axes in its spec."""
+    mesh = abstract(mesh)
+    n = 1
+    for axis in spec:
+        for a in (() if axis is None else axis if isinstance(axis, tuple) else (axis,)):
+            n *= mesh.shape[a]
+    return n
+
+
+def placements(spec: Spec, device_mesh) -> list:
+    """DTensor placements of a spec on ``device_mesh``: for each mesh
+    dimension ``Shard(d)`` if the spec puts that axis on tensor dim ``d``,
+    else ``Replicate()``.  A tuple entry shards one tensor dimension over
+    several mesh dimensions, in mesh order (the spec's tuples list the data
+    axes in mesh order, major first)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim_of = {}
+    for d, axis in enumerate(spec):
+        for a in (() if axis is None else axis if isinstance(axis, tuple) else (axis,)):
+            dim_of[a] = d
+    return [Shard(dim_of[a]) if a in dim_of else Replicate()
+            for a in device_mesh.mesh_dim_names]
+
+
+def distribute(tree: Any, specs: Any, device_mesh) -> Any:
+    """Every leaf of ``tree`` as a DTensor on ``device_mesh``, laid out by
+    its spec (``torch.distributed.tensor.distribute_tensor``)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return tree_map(lambda t, s: distribute_tensor(t, device_mesh, placements(s, device_mesh)),
+                    tree, specs)

@@ -19,6 +19,14 @@ def make_train_state(model: Model, opt_cfg: AdamWConfig, gen: torch.Generator) -
     return {"params": params, "opt": adamw_init(opt_cfg, params)}
 
 
+def train_state_shape(model: Model, opt_cfg: AdamWConfig) -> Dict[str, Any]:
+    """The train state on the meta device: every leaf's shape and dtype,
+    no storage (the initialisers' draws from a CPU generator land on meta
+    tensors, ``models.common.init_device``)."""
+    with torch.device("meta"):
+        return make_train_state(model, opt_cfg, torch.Generator())
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig):
     """``train_step(state, batch) -> (state, {"loss", "grad_norm", "lr"})``.
 

@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from .common import apply_mrope, apply_norm, apply_rope, dense_init, norm_init
+from .common import (apply_mrope, apply_norm, apply_rope, dense_init, init_device,
+                     norm_init)
 from .config import ModelConfig
 
 Tensors = Dict[str, torch.Tensor]
@@ -45,7 +46,7 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator) -> Tensors:
         "wo": dense_init(gen, H * hd, (D,), dt).reshape(H, hd, D),
     }
     if cfg.qkv_bias:
-        dev = gen.device
+        dev = init_device(gen)
         p["bq"] = torch.zeros((H, hd), dtype=dt, device=dev)
         p["bk"] = torch.zeros((KV, hd), dtype=dt, device=dev)
         p["bv"] = torch.zeros((KV, hd), dtype=dt, device=dev)
@@ -133,7 +134,7 @@ def mla_init(cfg: ModelConfig, gen: torch.Generator) -> Tensors:
     m = cfg.mla
     D, H = cfg.d_model, cfg.n_heads
     dt = cfg.param_tdtype()
-    dev = gen.device
+    dev = init_device(gen)
     return {
         "q_down": dense_init(gen, D, (m.q_lora,), dt),
         "q_norm": norm_init(cfg, dev, m.q_lora),

@@ -3,7 +3,8 @@
 Plain functions on tensors, twins of the reference package's
 ``models/common.py``.  Initialisers draw from an explicit
 ``torch.Generator`` on the generator's device, with the reference's
-distributions (the numbers differ: the two frameworks' generators differ).
+distributions (the numbers differ: the two frameworks' generators differ);
+under ``with torch.device("meta")`` they make shapes only (``init_device``).
 Sharding constraints are not ported: the port runs on one device.
 """
 
@@ -22,19 +23,29 @@ from .config import ModelConfig
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
+def init_device(gen: torch.Generator) -> torch.device:
+    """Where an initialiser puts its tensor: the generator's device, or the
+    meta device inside ``with torch.device("meta")``.  A draw from a CPU
+    generator into a meta tensor allocates nothing and changes no value on
+    another device, so a full-size tree's shapes and dtypes cost no memory
+    (``torch.Generator`` refuses the meta device itself)."""
+    default = torch.get_default_device()
+    return default if default.type == "meta" else gen.device
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_shape: Sequence[int],
                dtype: torch.dtype) -> torch.Tensor:
     """Truncated-normal fan-in init for an (in_dim, *out) weight.  Scaled in
     place: one fp32 copy of the weight at a time (5 GB for one of
     deepseek-v2's expert stacks)."""
-    w = torch.empty((in_dim, *out_shape), dtype=torch.float32, device=gen.device)
+    w = torch.empty((in_dim, *out_shape), dtype=torch.float32, device=init_device(gen))
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=gen.device)
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=init_device(gen))
     return (w * 0.02).to(dtype)
 
 

@@ -51,7 +51,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .common import (apply_norm, chunked_softmax_xent, dense_init, embed_tokens,
-                     embedding_init, lm_head_logits, merge_visual, norm_init,
+                     embedding_init, init_device, lm_head_logits, merge_visual, norm_init,
                      positions_for)
 from .config import ModelConfig, check_supported
 
@@ -154,7 +154,7 @@ def _ffn_init(cfg: ModelConfig, ffn: str, gen: torch.Generator) -> Tree:
 
 
 def _block_init(cfg: ModelConfig, kind: str, ffn: str, gen: torch.Generator) -> Tree:
-    dev = gen.device
+    dev = init_device(gen)
     if kind in ("attn", "mla"):
         mix = attn.attn_init(cfg, gen) if kind == "attn" else attn.mla_init(cfg, gen)
         p = {"ln1": norm_init(cfg, dev), "attn": mix, "ffn": _ffn_init(cfg, ffn, gen)}
@@ -170,13 +170,13 @@ def _block_init(cfg: ModelConfig, kind: str, ffn: str, gen: torch.Generator) -> 
 
 
 def init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
-    """Random weights on ``gen.device`` with the reference's distributions."""
+    """Random weights on ``init_device(gen)`` with the reference's distributions."""
     layers = [{} if g.kind == "shared_attn"
               else _stacked(lambda: _block_init(cfg, g.kind, g.ffn, gen), g.count)
               for g in layer_groups(cfg)]
     params: Tree = {
         "embed": embedding_init(cfg, gen),
-        "final_norm": norm_init(cfg, gen.device),
+        "final_norm": norm_init(cfg, init_device(gen)),
         "layers": layers,
     }
     if "shared_attn" in cfg.blocks:
@@ -185,7 +185,7 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
         params["lm_head"] = dense_init(gen, cfg.d_model, (cfg.padded_vocab,),
                                        cfg.param_tdtype()).t().contiguous()
     if cfg.rwkv is not None:
-        params["ln0"] = norm_init(cfg, gen.device)
+        params["ln0"] = norm_init(cfg, init_device(gen))
     return params
 
 

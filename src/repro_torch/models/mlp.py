@@ -171,7 +171,14 @@ def _moe_dropless(cfg: ModelConfig, p: Tensors,
     order = torch.argsort(flat_e, stable=True)
     tok = order // m.top_k
     xs = x[tok]
-    sizes = torch.bincount(flat_e, minlength=m.num_experts).tolist()
+    if flat_e.is_meta:
+        # a shapes-only trace (the dry-run) has no routing to read; the
+        # grouped products' FLOPs and bytes do not depend on how the rows
+        # split over the experts, so split them evenly
+        n, E = flat_e.numel(), m.num_experts
+        sizes = [n // E + (e < n % E) for e in range(E)]
+    else:
+        sizes = torch.bincount(flat_e, minlength=m.num_experts).tolist()
     act = act_fn(cfg.mlp_act)
     wi, wg, wo = (p[k].to(x.dtype) for k in ("wi", "wg", "wo"))
     out = torch.cat([(act(xe @ wi[e]) * (xe @ wg[e])) @ wo[e]

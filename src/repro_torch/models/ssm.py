@@ -24,14 +24,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from .common import dense_init
+from .common import dense_init, init_device
 from .config import ModelConfig
 
 Tensors = Dict[str, torch.Tensor]
 
 
 def _randn(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=init_device(gen))
     return (w * scale).to(dtype)
 
 
@@ -56,7 +56,7 @@ def mamba2_init(cfg: ModelConfig, gen: torch.Generator) -> Tensors:
     # in_proj -> [z (Din), x (Din), B (G*N), C (G*N), dt (H)]
     proj_out = 2 * Din + 2 * G * N + H
     dt = cfg.param_tdtype()
-    dev = gen.device
+    dev = init_device(gen)
     # S4D-real A init, A = -exp(U(log 1, log 16)); stored as log(-A)
     A_log = torch.empty(H, dtype=torch.float32, device=dev).uniform_(
         math.log(1.0), math.log(16.0), generator=gen)
@@ -169,7 +169,7 @@ def rwkv6_init(cfg: ModelConfig, gen: torch.Generator) -> Tensors:
     D = cfg.d_model
     H = D // rc.head_dim
     dt = cfg.param_tdtype()
-    dev = gen.device
+    dev = init_device(gen)
     f32 = torch.float32
     return {
         # token mix

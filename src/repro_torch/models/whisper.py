@@ -38,7 +38,7 @@ from repro_torch.kernels import ops, ref
 from . import attention as attn
 from . import mlp as mlpm
 from .common import (apply_norm, chunked_softmax_xent, embed_tokens, embedding_init,
-                     lm_head_logits, norm_init)
+                     init_device, lm_head_logits, norm_init)
 from .config import ModelConfig
 
 Tree = Dict[str, Any]
@@ -56,8 +56,8 @@ def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
 
 
 def init(cfg: ModelConfig, gen: torch.Generator) -> Tree:
-    """Random weights on ``gen.device`` with the reference's distributions."""
-    dev = gen.device
+    """Random weights on ``init_device(gen)`` with the reference's distributions."""
+    dev = init_device(gen)
     p: Tree = {
         "embed": embedding_init(cfg, gen),
         "pos_dec": (torch.randn((POS_DEC_ROWS, cfg.d_model), generator=gen, device=dev)

@@ -40,3 +40,16 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, *rest: Any, path: str = "") -> Any:
+    """``fn(name, leaf, *matching leaves of rest)`` over the leaves of
+    ``tree``, keeping the nesting; ``name`` is the leaf's ``keystr`` name
+    (``"['layers'][0]['attn']['wq']"``), as ``bridge.leaf_names`` gives it."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest), path=f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, *(r[i] for r in rest), path=f"{path}[{i}]")
+                for i, v in enumerate(tree)]
+    return fn(path, tree, *rest)

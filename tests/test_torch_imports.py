@@ -36,7 +36,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.launch.serve, repro_torch.bridge, "
             "repro_torch.launch.steps, repro_torch.optim.adamw, repro_torch.launch.train, "
             "repro_torch.runtime, repro_torch.checkpoint, repro_torch.data, repro_torch.core, "
-            "repro_torch.store.staging; "
+            "repro_torch.store.staging, repro_torch.launch.mesh, repro_torch.launch.sharding, "
+            "repro_torch.launch.specs, repro_torch.launch.dryrun, repro_torch.analysis, "
+            "repro_torch.analysis.cost, repro_torch.analysis.roofline; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
