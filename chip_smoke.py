@@ -143,7 +143,22 @@ Phases, each of which raises on failure (nothing is caught):
              at the median step time; then three production cells planned
              on 16x16 (HBM a device against the card's, the roofline's
              dominant term and bound).
-10. report — one ``kernels`` JSON line, the nvidia-smi line, and the result
+10. iostore — the paper's case studies on this machine's own disk (under
+             ``build/iostore``, removed at the end; ``OSDevice(direct=True)``,
+             the io_uring backend at depth 32), each serially and through its
+             foreaction graph: du over 10,000 files in 100 directories, and
+             ``wrap(auto_graph=True)``, which must mine du and enable; cp of a
+             1 GiB file in 128 KiB buffers (CRC32 equal); B+-tree bulk Load
+             of 1,000,000 keys at degree 510 (both files equal) and a full
+             Scan; an LSM store of 1,000,000 keys of 256 B in 16 overlapping
+             L0 tables, 2,000 seeded Gets serially, through ``lsm_get`` and
+             through ``multi_get`` (every answer the oracle's; p50, p99 and
+             totals printed); then the I/O server's CLI in three runs, each
+             of which must exit 0 with ``errors=0``.  Every time is printed
+             beside the nvidia-smi line, the file system and its block
+             device, the free disk and the direct-open counts.  Times are
+             reported, not gated.
+11. report — one ``kernels`` JSON line, the nvidia-smi line, and the result
              line ``{"ok": true, "device": {...}}`` last.  Every phase's
              seconds are printed (``[time]``).
 
@@ -158,6 +173,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -3001,6 +3017,298 @@ def _dryrun_checks(torch, smi):
     return readings
 
 
+# ---------------------------------------------------------------------------
+# iostore: the paper's case studies and the I/O server on the machine's disk
+# ---------------------------------------------------------------------------
+IOSTORE_DIR = ROOT / "build" / "iostore"
+IOSTORE_DU = (100, 100)  # directories, files in each
+IOSTORE_CP_BYTES = 1 << 30
+IOSTORE_CP_BUF = 128 * 1024  # the cp plugin's buffer (fileutils.CP_BUF)
+IOSTORE_BPT_KEYS, IOSTORE_BPT_DEGREE = 1_000_000, 510
+# 16 overlapping L0 tables of 62,500 keys, 256-byte values: a Get searches
+# up to 16 candidate tables (the paper's LevelDB chains are 12-19 deep)
+IOSTORE_LSM_KEYS, IOSTORE_LSM_VALUE, IOSTORE_LSM_TABLES = 1_000_000, 256, 16
+IOSTORE_GETS, IOSTORE_MULTIGET_BATCH = 2000, 8
+IOSTORE_DEPTH = 32  # as the trainer phase's Foreactor
+# the I/O server's CLI, each run as its own process
+IOSTORE_SERVER_RUNS = (("--mode", "all", "--clients", "8"),
+                       ("--openloop", "--mode", "shared", "--sessions", "1024", "--rate", "0.35",
+                        "--duration", "2.0"),
+                       ("--remine",))
+
+
+def _mount_of(path):
+    """(mount point, file system type, source) of the mount that holds
+    ``path``, from /proc/self/mountinfo, and the block device of its
+    ``st_dev`` (from /sys/dev/block, or None)."""
+    path = os.path.realpath(path)
+    best = ("", "?", "?")
+    with open("/proc/self/mountinfo") as f:
+        for line in f:
+            left, _, right = line.partition(" - ")
+            point = left.split()[4].replace("\\040", " ")
+            fstype, source = right.split()[:2]
+            inside = path == point or path.startswith(point.rstrip("/") + "/")
+            if inside and len(point) >= len(best[0]):
+                best = (point, fstype, source)
+    dev = os.stat(path).st_dev
+    block = Path(f"/sys/dev/block/{os.major(dev)}:{os.minor(dev)}")
+    return best + ((block.resolve().name if block.exists() else
+                    f"none (st_dev {os.major(dev)}:{os.minor(dev)})"),)
+
+
+def _lsm_value(blob, k):
+    """The value of key ``k``: its 8 bytes and 248 bytes of a seeded blob."""
+    o = (k * 131) % (len(blob) - IOSTORE_LSM_VALUE)
+    return k.to_bytes(8, "little") + blob[o:o + IOSTORE_LSM_VALUE - 8]
+
+
+def _latencies(fn, items):
+    """Per-call seconds of ``fn(item)`` and the results."""
+    out, lat = [], []
+    for it in items:
+        t0 = time.perf_counter()
+        out.append(fn(it))
+        lat.append(time.perf_counter() - t0)
+    return out, lat
+
+
+def phase_iostore(smi):
+    """The paper's case studies (du, cp, B+-tree Load and Scan, LSM Get and
+    multi_get) serially and through their foreaction graphs on this
+    machine's own disk under ``build/iostore`` (``OSDevice``, direct reads
+    where the file system takes them), ``wrap(auto_graph=True)`` mining du,
+    and the I/O server's CLI in three modes.  Answers and exit codes are
+    checked; times are reported, not gated."""
+    import shutil
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from repro_torch.core import Foreactor, OSDevice
+    from repro_torch.store import plugins
+    from repro_torch.store.bptree import BPTree
+    from repro_torch.store.fileutils import cp_file, du_dir
+    from repro_torch.store.lsm import LSMTree
+
+    tag = "[iostore]"
+    shutil.rmtree(IOSTORE_DIR, ignore_errors=True)
+    IOSTORE_DIR.mkdir(parents=True)
+    point, fstype, source, block = _mount_of(IOSTORE_DIR)
+    dev = OSDevice(direct=True)
+    readings = {"mount": point, "fs": fstype, "source": source, "block_device": block}
+
+    def where():
+        free = shutil.disk_usage(IOSTORE_DIR).free / 1e9
+        return (f"[{smi}; {fstype} {source} on {point}, block {block}; free {free:.1f} GB; "
+                f"direct opens {dev.direct_opens} fallbacks {dev.direct_fallbacks}]")
+
+    def reading(name, seconds, **extra):
+        readings[name] = dict(s=seconds, **extra)
+        log(f"{tag} {name}: {seconds:.4f} s" + "".join(f", {k} {v}" for k, v in extra.items())
+            + f" {where()}")
+
+    def graphs():
+        fa = Foreactor(device=dev, backend="io_uring", depth=IOSTORE_DEPTH)
+        plugins.register_all(fa, precompile=True)
+        return fa
+
+    t_phase = time.perf_counter()
+    try:
+        log(f"{tag} {IOSTORE_DIR}: {where()}")
+        rng = np.random.default_rng(0)
+
+        # -- du over 10,000 files in 100 directories -------------------------
+        ndirs, nfiles = IOSTORE_DU
+        sizes = rng.integers(0, 8192, size=(ndirs, nfiles))
+        dirs = [str(IOSTORE_DIR / "du" / f"d{i:03d}") for i in range(ndirs)]
+        for d, row in zip(dirs, sizes):
+            os.makedirs(d)
+            for j, n in enumerate(row.tolist()):
+                with open(f"{d}/f{j:03d}", "wb") as f:
+                    f.write(rng.bytes(n))
+        want = [int(s) for s in sizes.sum(axis=1)]
+        fa = graphs()
+        du = fa.wrap("du", plugins.capture_du)(du_dir)
+        for label, fn in (("du serial", du_dir), ("du graph", du), ("du graph 2", du),
+                          ("du serial 2", du_dir)):
+            t0 = time.perf_counter()
+            got = [fn(dev, d) for d in dirs]
+            reading(label, time.perf_counter() - t0, total=sum(got))
+            if got != want:
+                raise AssertionError(f"{tag} {label}: totals differ from the sizes written")
+        auto = fa.wrap("du_auto", plugins.capture_du, auto_graph=True, observe_calls=2)(du_dir)
+        t0 = time.perf_counter()
+        got = [auto(dev, d) for d in dirs]
+        state = dict(auto.__foreactor_auto__)
+        reading(f"du auto_graph (2 observed, {ndirs - 2} speculated)", time.perf_counter() - t0,
+                state=state["state"])
+        if got != want or state["state"] != "speculating":
+            raise AssertionError(f"{tag} auto_graph du: state {state}, totals equal "
+                                 f"{got == want}")
+        # the same two observations mined apart from the wrapper: the graph
+        # the wrapper registered, with its signature
+        obs_fa = Foreactor(device=dev, backend="sync")
+        obs = obs_fa.observe("du_auto", plugins.capture_du)(du_dir)
+        obs(dev, dirs[0])
+        obs(dev, dirs[1])
+        mined = obs_fa.mine("du_auto", register=False)
+        obs_fa.shutdown()
+        if mined.to_dot() != fa.graph("du_auto").to_dot():
+            raise AssertionError(f"{tag} the wrapper's mined graph differs from a mining of "
+                                 f"the same two observations")
+        log(f"{tag} du auto_graph mined signature:\n{mined.signature()}")
+        readings["du_auto_signature"] = mined.signature()
+        fa.shutdown()
+        shutil.rmtree(IOSTORE_DIR / "du")
+
+        # -- cp of one 1 GiB file, 128 KiB buffers ----------------------------
+        src = IOSTORE_DIR / "cp_src.bin"
+        crc = 0
+        with open(src, "wb") as f:
+            for _ in range(IOSTORE_CP_BYTES // (64 << 20)):
+                chunk = rng.bytes(64 << 20)
+                crc = zlib.crc32(chunk, crc)
+                f.write(chunk)
+            f.flush()
+            os.fsync(f.fileno())
+
+        def crc_of(p):
+            c = 0
+            with open(p, "rb") as f:
+                while chunk := f.read(64 << 20):
+                    c = zlib.crc32(chunk, c)
+            return c
+
+        fa = graphs()
+        cp = fa.wrap("cp", plugins.capture_cp)(cp_file)
+        for label, fn in (("cp serial", cp_file), ("cp graph", cp)):
+            dst = IOSTORE_DIR / "cp_dst.bin"
+            t0 = time.perf_counter()
+            n = fn(dev, str(src), str(dst), IOSTORE_CP_BUF)
+            s = time.perf_counter() - t0
+            got = crc_of(dst)
+            reading(label, s, bytes=n, GB_s=round(n / s / 1e9, 3), crc32=f"{got:08x}")
+            if n != IOSTORE_CP_BYTES or got != crc:
+                raise AssertionError(f"{tag} {label}: copied {n} B, crc32 {got:08x}, "
+                                     f"source {crc:08x}")
+            dst.unlink()
+        fa.shutdown()
+        src.unlink()
+
+        # -- B+-tree: bulk Load of 1,000,000 keys at degree 510, full Scan ----
+        keys = np.sort(rng.choice(1 << 40, size=IOSTORE_BPT_KEYS, replace=False)).astype(np.uint64)
+        vals = rng.integers(0, 1 << 63, size=len(keys), dtype=np.uint64)
+        fa = graphs()
+        load = fa.wrap("bptree_load", plugins.capture_bptree_load)(plugins.load_with_graph)
+        for way, fn in (("serial", BPTree.bulk_load), ("graph", load)):
+            tree = BPTree(dev, str(IOSTORE_DIR / f"{way}.db"), degree=IOSTORE_BPT_DEGREE)
+            t0 = time.perf_counter()
+            fn(tree, keys, vals)
+            reading(f"bptree load {way}", time.perf_counter() - t0, leaves=tree.nleaves,
+                    height=tree.height)
+            tree.close()
+        if (IOSTORE_DIR / "serial.db").read_bytes() != (IOSTORE_DIR / "graph.db").read_bytes():
+            raise AssertionError(f"{tag} the two loads wrote different files")
+        want = list(zip(keys.tolist(), vals.tolist()))
+        tree = BPTree(dev, str(IOSTORE_DIR / "graph.db")).open()
+        scan = fa.wrap("bptree_scan", plugins.capture_bptree_scan)(plugins.scan_with_graph)
+        for label, fn in (("bptree scan serial", tree.scan),
+                          ("bptree scan graph", lambda lo, hi: scan(tree, lo, hi))):
+            t0 = time.perf_counter()
+            got = fn(int(keys[0]), int(keys[-1]))
+            reading(label, time.perf_counter() - t0, records=len(got))
+            if got != want:
+                raise AssertionError(f"{tag} {label}: the records differ from the loaded ones")
+        tree.close()
+        fa.shutdown()
+        del want, got
+
+        # -- LSM: 1,000,000 keys of 256 B in 16 overlapping L0 tables ---------
+        blob = rng.bytes(1 << 20)
+        root = str(IOSTORE_DIR / "lsm")
+        per_table = IOSTORE_LSM_KEYS // IOSTORE_LSM_TABLES
+        t0 = time.perf_counter()
+        build = LSMTree(OSDevice(), root, l0_limit=10 ** 6,
+                        memtable_limit_bytes=per_table * (IOSTORE_LSM_VALUE + 12))
+        for k in rng.permutation(IOSTORE_LSM_KEYS).tolist():
+            build.put(k, _lsm_value(blob, k))
+        build.flush()
+        size = sum(t.size_bytes for t in build.levels[0])
+        build.close()
+        log(f"{tag} LSM built in {time.perf_counter() - t0:.1f} s: "
+            f"{len(build.levels[0])} L0 tables, {size / 1e6:.1f} MB")
+        if len(build.levels[0]) != IOSTORE_LSM_TABLES or len(build.levels) != 1:
+            raise AssertionError(f"{tag} LSM levels {[len(lv) for lv in build.levels]}")
+        lsm = LSMTree.open_existing(dev, root)
+        gets = [int(k) for k in rng.integers(0, IOSTORE_LSM_KEYS, size=IOSTORE_GETS)]
+        want = [_lsm_value(blob, k) for k in gets]
+        chain = [len(lsm.candidates(k)) for k in gets]
+        log(f"{tag} Get candidate chains: min {min(chain)}, mean {sum(chain) / len(chain):.2f}, "
+            f"max {max(chain)}")
+        # whether the disk overlaps reads at all: the Gets' first candidate
+        # blocks read straight from the device, by one thread and by 16
+        blocks = [lsm.candidates(k)[0] for k in gets]
+        for threads in (1, 16):
+            with ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(lambda c: dev.pread(c[0].fd, c[2], c[1]), blocks))
+                reading(f"raw block reads, {threads} thread(s)", time.perf_counter() - t0,
+                        reads=len(blocks))
+        fa = graphs()
+        get = fa.wrap("lsm_get", plugins.capture_lsm_get)(lambda t, k: t.get(k))
+        mget = fa.wrap("lsm_multiget", plugins.capture_lsm_multiget)(lambda t, ks: t.multi_get(ks))
+        batches = [gets[i:i + IOSTORE_MULTIGET_BATCH]
+                   for i in range(0, len(gets), IOSTORE_MULTIGET_BATCH)]
+        for label, fn, items in (("lsm get serial", lsm.get, gets),
+                                 ("lsm get graph", lambda k: get(lsm, k), gets),
+                                 ("lsm multi_get graph", lambda ks: mget(lsm, ks), batches)):
+            t0 = time.perf_counter()
+            got, lat = _latencies(fn, items)
+            total = time.perf_counter() - t0
+            if label.startswith("lsm multi_get"):
+                got = [v for vs in got for v in vs]
+            unit = f"batch of {IOSTORE_MULTIGET_BATCH}" if "multi" in label else "Get"
+            p50, p99 = np.percentile(lat, [50, 99]) * 1e3
+            reading(label, total, p50_ms=round(float(p50), 4), p99_ms=round(float(p99), 4),
+                    per=unit)
+            if got != want:
+                bad = sum(g != w for g, w in zip(got, want))
+                raise AssertionError(f"{tag} {label}: {bad} of {len(want)} answers differ "
+                                     f"from the oracle")
+        stats = fa.total_stats
+        log(f"{tag} engine over the graph Gets and multi_gets: pre_issued {stats.pre_issued}, "
+            f"served_async {stats.served_async}, cancelled {stats.cancelled}, "
+            f"wasted {stats.wasted_completions}")
+        fa.shutdown()
+        lsm.close()
+        readings["direct_opens"], readings["direct_fallbacks"] = (dev.direct_opens,
+                                                                  dev.direct_fallbacks)
+
+        # -- the I/O server's CLI ------------------------------------------------
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        for args in IOSTORE_SERVER_RUNS:
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "repro_torch.launch.ioserver", *args],
+                                 env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
+            s = time.perf_counter() - t0
+            summary = [ln for ln in res.stdout.splitlines()
+                       if ln.startswith(("[ioserver]", "[openloop]", "  class", "  remine"))]
+            for ln in summary:
+                log(f"{tag} {' '.join(args)} | {ln.strip()}")
+            reading(f"ioserver {' '.join(args)}", s, rc=res.returncode)
+            heads = [ln for ln in summary if ln.startswith(("[ioserver]", "[openloop]"))]
+            if res.returncode != 0 or not heads or any("errors=0" not in h for h in heads):
+                raise AssertionError(f"{tag} ioserver {args}: rc {res.returncode}\n"
+                                     f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(IOSTORE_DIR, ignore_errors=True)
+    readings["phase_s"] = time.perf_counter() - t_phase
+    log(f"{tag} phase {readings['phase_s']:.1f} s")
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -3044,6 +3352,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     dry = timed("dryrun", phase_dryrun, torch, smi)
     log("[dryrun] " + json.dumps(dict(dry, card=smi)))
+    iostore = timed("iostore", phase_iostore, smi)
+    log("[iostore] " + json.dumps(dict(iostore, card=smi)))
     for row in rows:  # launches on the served, the trained and the trainer's paths together
         row["launches"] = sum(r["launches"][row["name"]] for r in results + trained + [trainer])
         row["launches_serve"] = {r["arch"]: r["launches"][row["name"]] for r in results}

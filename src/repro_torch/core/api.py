@@ -135,8 +135,7 @@ class Foreactor:
         #: trace_stats()
         self.trace_capacity = trace_capacity
         self._traces: Dict[str, TraceRing] = {}
-        #: attached online re-miner, or None (the re-miner is not ported
-        #: yet, ROADMAP A9, so nothing attaches one)
+        #: attached online re-miner (repro_torch.analysis.remine.ReMiner), or None
         self._reminer = None
         self.total_stats = SessionStats()
         self._backends: List[Backend] = []
@@ -205,9 +204,8 @@ class Foreactor:
         return self._reminer
 
     def attach_reminer(self, reminer) -> None:
-        """Attach an online re-miner (the reference package's
-        ``analysis/remine.py`` ``ReMiner`` does this in its constructor; not
-        ported yet, ROADMAP A9).  From then on ``activate`` asks it to
+        """Attach an online re-miner (:class:`repro_torch.analysis.remine.ReMiner`
+        does this in its constructor).  From then on ``activate`` asks it to
         elect sampled activations (which record a trace serially instead of
         speculating) and ``deactivate`` feeds it every finished session's
         stats for the per-version waste ledger its rollback guard watches."""
@@ -235,7 +233,7 @@ class Foreactor:
 
     def plan_cache_stats(self) -> Dict[str, Any]:
         """Plan-cache and graph-version observability, surfaced in serving
-        summaries (the reference package's ``launch/ioserver.py``): per graph name, ``probes``
+        summaries (``repro_torch.launch.ioserver``): per graph name, ``probes``
         (plan() calls), ``compiles`` (probes that produced a new plan
         object), ``hits`` (probes served by the cache), ``graph_version``
         (times the graph was built — bumps when a mined graph replaces a
@@ -410,8 +408,7 @@ class Foreactor:
         With ``auto_graph=True`` no registered graph is needed: the first
         ``observe_calls`` invocations run serially under a
         :class:`TraceRecorder`, then the traces are mined into a graph
-        (:meth:`mine`, which raises until the miner is ported, ROADMAP A9)
-        and — if the mined
+        (:func:`repro_torch.analysis.mine.mine_and_validate`) and — if the mined
         graph replays every recorded trace exactly — registered and used for
         speculation from then on.  A function the miner cannot prove sound
         stays permanently serial (``wrapper.__foreactor_auto__['state']``
@@ -553,14 +550,27 @@ class Foreactor:
 
     def mine(self, name: str, register: bool = True, holdout: bool = True):
         """Mine the traces recorded under ``name`` into a validated
-        ``ForeactionGraph``.  The graph miner (the reference package's
-        ``analysis/mine.py``) is not ported yet (ROADMAP A9), so this
-        raises; ``wrap(..., auto_graph=True)`` therefore records its traces
-        and then stays serial, its state ``'disabled'`` with this reason.
+        ``ForeactionGraph`` and (by default) register it under the same
+        name.  Raises ``UnminableTrace``/``UnsoundGraph`` on refusal.
+
+        On successful registration the recorded traces are released — the
+        raw I/O buffers they hold (every pread result) must not stay
+        resident for the Foreactor's lifetime once the graph exists.
         """
-        raise NotImplementedError(
-            "Foreactor.mine needs the graph miner, which the port does not "
-            "have yet (ROADMAP A9: analysis/mine.py)")
+        from repro_torch.analysis.mine import mine_and_validate  # lazy: no cycle
+
+        pairs = self.traces(name)
+        if not pairs:
+            raise ValueError(f"no traces recorded under {name!r}")
+        ctxs = [c for (c, _t) in pairs]
+        trs = [t for (_c, t) in pairs]
+        mined = mine_and_validate(trs, ctxs, name=name, holdout=holdout)
+        if register:
+            with self._lock:
+                self._graph_builders[name] = mined.builder()
+                self._graphs.pop(name, None)  # rebuild on next activation
+                self._traces.pop(name, None)
+        return mined
 
     def shutdown(self) -> None:
         with self._lock:

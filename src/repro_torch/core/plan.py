@@ -172,9 +172,9 @@ def predicted_preissue(plan: GraphPlan, ctx: Dict[str, Any],
 
     ``events`` is a sequence of recorded syscalls (``.sc``, ``.args``,
     ``.result`` — :class:`repro_torch.core.trace.TraceEvent` or anything
-    shaped like it).  The walk mirrors the validator's serial replay (the
-    reference package's ``analysis/mine.replay_trace``) but *scores*
-    instead of judging: it stops at the first divergence — wrong syscall kind,
+    shaped like it).  The walk mirrors the validator's serial replay
+    (:func:`repro_torch.analysis.mine.replay_trace`) but *scores* instead of
+    judging: it stops at the first divergence — wrong syscall kind,
     mismatched arguments, undecidable branch, graph exhausted — and
     returns the count of matched events.  Against a live trace this is the
     number of intercepts the engine's harvest-time argument guard would

@@ -4,8 +4,8 @@ The paper's adoption cost is hand-writing foreaction graphs.  This module
 removes it for a large class of functions: run the function once (or a few
 times) under a :class:`TraceRecorder`, and the recorded syscall trace —
 ordered events with full argument and result values — becomes the input to
-the graph miner (the reference package's ``analysis/mine.py``; not ported
-yet), which folds traces into a directly-follows graph and emits a ready-to-register ``ForeactionGraph``.
+the graph miner (:mod:`repro_torch.analysis.mine`), which folds traces into a
+directly-follows graph and emits a ready-to-register ``ForeactionGraph``.
 
 A ``TraceRecorder`` rides the same per-thread activation stack that
 ``SpecSession`` uses: while it is on top, every ``io.*`` call on that thread
@@ -191,7 +191,7 @@ class RecordingSession:
     speculating on it — the trace sampler half of online re-mining.
 
     ``Foreactor.activate`` returns one of these for the 1-in-N activations
-    an attached re-miner (not ported yet) elects to sample.
+    an attached :class:`repro_torch.analysis.remine.ReMiner` elects to sample.
     It duck-types the slice of the ``SpecSession`` surface that
     ``Foreactor.deactivate``, ``Foreactor.wrap`` and the interception layer
     touch (``device``, ``intercept``, ``mark_failed``, ``finish`` returning

@@ -518,18 +518,3 @@ def test_engine_runs_a_speculated_graph_as_the_reference(backend):
         assert sorted(map(repr, tlog)) == sorted(map(repr, jlog))
     assert any(op == "rename" for op, *_ in tlog)  # the staged create published
 
-
-def test_mine_is_not_ported():
-    fa = Foreactor(device=MemDevice())
-
-    def f(dev):
-        fd = io.open(dev, "/x", "w")
-        io.close(dev, fd)
-
-    wrapped = fa.wrap("auto_f", lambda dev: {}, auto_graph=True, observe_calls=1)(f)
-    wrapped(fa.device)
-    assert wrapped.__foreactor_auto__["state"] == "disabled"
-    assert "ROADMAP A9" in wrapped.__foreactor_auto__["reason"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        fa.mine("auto_f")
-    fa.shutdown()

@@ -45,3 +45,18 @@ def test_importing_the_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_importing_the_case_studies_loads_no_jax_or_reference():
+    """The I/O server imports the re-miner only under ``--remine`` and the
+    plugins import the miner's driver lazily: importing those modules (and
+    the lazy targets) pulls in neither JAX nor the reference package."""
+    code = ("import sys, repro_torch.launch.ioserver, repro_torch.analysis.remine, "
+            "repro_torch.store.plugins, repro_torch.analysis.mine; "
+            "repro_torch.store.plugins.mine_reference_graphs(); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
