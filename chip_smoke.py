@@ -59,8 +59,8 @@ Phases, each of which raises on failure (nothing is caught):
              gemma-7b, gemma-2b, qwen2-vl-7b (8
              seeded visual embeddings), command-r-35b (prompt 1000;
              36 of its 40 layers, the depth in ``PATHS``, printed),
-             granite-moe-3b-a800m (prompt 1000; 40 experts top-8 on the
-             capacity path) and deepseek-v2-236b (prompt 1000; 8 of its
+             granite-moe-3b-a800m (prompt 1000; 16 of its 32 layers;
+             40 experts top-8 on the capacity path) and deepseek-v2-236b (prompt 1000; 8 of its
              60 layers: the dense first layer and 7 MoE layers of 160
              experts top-6 with 2 shared; MLA: the flash kernel in
              prefill, latent-space decode without a kernel) and
@@ -113,7 +113,8 @@ Phases, each of which raises on failure (nothing is caught):
              per leaf must lie within twice the floor, the fault beyond
              (where a copy of the state fits beside a step: not gemma-2b).
 8. trainer — the walkthrough at full width through
-             ``repro_torch.runtime.Trainer`` (tinyllama-1.1b in bf16, batch
+             ``repro_torch.runtime.Trainer`` (tinyllama-1.1b in bf16 at 11
+             of its 22 layers for time, ``TRAINER_LAYERS``, batch
              8 x 1024, synthetic shards read through ``OSDevice`` and
              ``Foreactor(backend="io_uring", depth=32)``; free disk and
              MemAvailable printed first, the depth cut if three
@@ -143,7 +144,24 @@ Phases, each of which raises on failure (nothing is caught):
              at the median step time; then three production cells planned
              on 16x16 (HBM a device against the card's, the roofline's
              dominant term and bound).
-10. iostore — the paper's case studies on this machine's own disk (under
+10. mesh   — the multi-device slice on a one-rank NCCL group
+             (``HashStore``) and its (1, 1) host mesh
+             (``launch.mesh.mesh_context``): tinyllama-1.1b, zamba2-1.2b
+             and rwkv6-7b (4 of its 32 layers) served at full width over the
+             mesh against meshless (batch 8, prefill and 16 greedy tokens:
+             the logits of every step bit for bit, the tokens, the launch
+             counts equal), the decode step's overhead (median of 5,
+             alternating); the trainer at full width over tinyllama's first
+             4 layers, batch 8 x 1024: three steps meshless against two
+             over the mesh, a save from the mesh, and a second trainer over
+             the mesh that restores it and takes the third (losses and
+             every state leaf bit for bit, launches equal); one train step's
+             loss and grad norm bit for bit and its overhead (median of 5);
+             every kernel launched on the mesh path; then tinyllama-1.1b
+             train_4k planned on 16x16 with the collectives one device
+             issues, counted over a fake 256-rank group (bytes by kind, the
+             roofline's collective term).
+11. iostore — the paper's case studies on this machine's own disk (under
              ``build/iostore``, removed at the end; ``OSDevice(direct=True)``,
              the io_uring backend at depth 32), each serially and through its
              foreaction graph: du over 10,000 files in 100 directories, and
@@ -158,7 +176,7 @@ Phases, each of which raises on failure (nothing is caught):
              beside the nvidia-smi line, the file system and its block
              device, the free disk and the direct-open counts.  Times are
              reported, not gated.
-11. report — one ``kernels`` JSON line, the nvidia-smi line, and the result
+12. report — one ``kernels`` JSON line, the nvidia-smi line, and the result
              line ``{"ok": true, "device": {...}}`` last.  Every phase's
              seconds are printed (``[time]``).
 
@@ -206,7 +224,9 @@ TIGHT_ATOL, TIGHT_RTOL = 5e-3, 1e-2
 # served run's and the teacher-forced check's), the 8.4 GB fp32 copy of the
 # tied head and prefill's activations it peaked at 71.74 GB of the card's
 # 85.02 GB (NVIDIA H100 80GB HBM3, 700.00 W).  granite-moe-3b-a800m (6.75
-# GB of bf16 weights) serves at full depth.  rwkv6-7b keeps 16 of its 32
+# GB of bf16 weights at full depth) keeps 16 of its 32 layers for time: its
+# host-bound decode made its path the longest of the served ones (73.2-88.8
+# s), in a script that reached 1095.9 s of its 1200.  rwkv6-7b keeps 16 of its 32
 # layers (full width) for time: with granite's paths the whole script took
 # 945.6 s of the 1200 s it may take (NVIDIA H100 80GB HBM3, 700.00 W), and
 # rwkv6's served path, host-bound at 3,769 device ops a decode step, was
@@ -229,7 +249,7 @@ TIGHT_ATOL, TIGHT_RTOL = 5e-3, 1e-2
 # the card.
 PATHS = (("tinyllama-1.1b", 1000, None), ("zamba2-1.2b", 1024, None), ("rwkv6-7b", 1024, 16),
          ("gemma-7b", 1000, None), ("gemma-2b", 1000, None), ("qwen2-vl-7b", 1000, None),
-         ("command-r-35b", 1000, 36), ("granite-moe-3b-a800m", 1000, None),
+         ("command-r-35b", 1000, 36), ("granite-moe-3b-a800m", 1000, 16),
          ("deepseek-v2-236b", 1000, 8), ("whisper-tiny", 383, None))
 SERVE_MEM_SHARE = 0.9
 BATCH, GEN = 8, 64
@@ -2366,8 +2386,13 @@ def _dots_parity(torch, tag, cfg, state, batch):
 # ---------------------------------------------------------------------------
 # the walkthrough's shape at full width: tinyllama-1.1b in bf16, synthetic
 # data (4 shards of 64 records), 8 steps of batch 8 x 1024, write-behind
-# saves every 4 steps, a simulated node failure at step 6
+# saves every 4 steps, a simulated node failure at step 6.  At 11 of its 22
+# layers for time: the phase's saves and restores scale with the state
+# (15.40 GB at full depth), and at full depth it took 194-245 s of a script
+# that reached 1095.9 s of its 1200 on a slow host (NVIDIA H100 80GB HBM3,
+# 700.00 W)
 TRAINER_ARCH = "tinyllama-1.1b"
+TRAINER_LAYERS = 11
 TRAINER_BATCH, TRAINER_SEQ = 8, 1024
 TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_KILL_AT = 8, 4, 6
 TRAINER_SHARDS, TRAINER_RECORDS = 4, 64
@@ -2632,7 +2657,8 @@ def phase_trainer(torch, smi):
     del state
     free_gb = shutil.disk_usage(TRAINER_DIR).free / 1e9
     avail_gb = _meminfo_gb("MemAvailable")
-    full_layers = layers = cfg.n_layers
+    full_layers = cfg.n_layers
+    layers = min(TRAINER_LAYERS, full_layers)
     size = lambda L: (total - per_layer * (full_layers - L)) / 1e9  # noqa: E731
     while layers > 1 and (3 * size(layers) + 2 > free_gb or 3.5 * size(layers) > avail_gb):
         layers -= 1
@@ -2808,7 +2834,7 @@ ALLOC_SPLIT = 1 << 20  # the caching allocator splits off no remainder of this o
 
 def _bitwise_equal(torch, a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
 def _allocated(torch, make):
@@ -3015,6 +3041,326 @@ def _dryrun_checks(torch, smi):
     readings["phase_s"] = time.perf_counter() - t_phase
     log(f"{tag} phase {readings['phase_s']:.1f} s")
     return readings
+
+
+# ---------------------------------------------------------------------------
+# mesh: the multi-device slice on a one-rank NCCL mesh, and its dry-run
+# ---------------------------------------------------------------------------
+# served over the (1, 1) host mesh against meshless, full width: tinyllama at
+# full depth (flash + decode), zamba2 at full depth (mamba2 + its shared
+# attention's flash and decode), rwkv6-7b at 4 of its 32 layers (rwkv6)
+MESH_SERVE = (("tinyllama-1.1b", 1000, None), ("zamba2-1.2b", 1024, None),
+              ("rwkv6-7b", 1024, 4))
+MESH_GEN = 16
+# the trainer over the mesh: tinyllama at full width, 4 of its 22 layers
+# (one checkpoint of its train state is 4.3 GB), batch 8 x 1024
+MESH_TRAIN_LAYERS, MESH_TRAIN = 4, (8, 1024)
+MESH_AB_REPS = 5   # the overhead A/B: median of 5 each, alternating
+MESH_DIR = ROOT / "build" / "mesh"
+
+
+def phase_mesh(torch, smi):
+    """The port over a ``DeviceMesh`` (``launch.mesh.mesh_context``): inside
+    a one-rank NCCL group (``HashStore``) destroyed at the end, its (1, 1)
+    host mesh against meshless, bit for bit; then tinyllama-1.1b's
+    train_4k planned on 16x16 with its collectives counted over a fake
+    256-rank group."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        readings = _mesh_checks(torch, smi)
+    finally:
+        dist.destroy_process_group()
+    readings["dryrun"] = _mesh_dryrun(smi)
+    return readings
+
+
+def _mesh_serve(torch, smi, mesh, arch, prompt, layers):
+    """Prefill + ``MESH_GEN`` greedy tokens meshless and over the mesh: the
+    logits of every step bit for bit, the tokens, the launch counts."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import gather, mesh_context, replicate, shard_batch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+
+    tag = f"[mesh {arch}]"
+    cfg = _train_config(arch, layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, prompt))
+                              .astype(np.int32)).cuda()
+    max_len = prompt + MESH_GEN + 1
+    prefill, decode = make_prefill_step(model, max_len), make_decode_step(model)
+    V = cfg.vocab_size
+
+    def serve(p, batch):
+        logits, cache = prefill(p, batch)
+        seen = [gather(logits)]
+        tok = logits[:, :V].argmax(-1)
+        for t in range(MESH_GEN):
+            pos = torch.full((BATCH,), prompt + t, dtype=torch.int32, device="cuda")
+            logits, cache = decode(p, cache, tok, pos)
+            seen.append(gather(logits))
+            tok = logits[:, :V].argmax(-1)
+        return torch.stack(seen), cache
+
+    ops.reset_launch_counts()
+    want, cache = serve(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    want_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    with mesh_context(mesh):
+        dparams = replicate(params, mesh)
+        got, dcache = serve(dparams, shard_batch({"tokens": tokens}, mesh))
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    # the overhead of one decode step, mesh against meshless, alternating
+    tok = got[-1][:, :V].argmax(-1)
+    pos = torch.full((BATCH,), prompt + MESH_GEN, dtype=torch.int32, device="cuda")
+    ab = {"meshless": [], "mesh": []}
+    for _ in range(MESH_AB_REPS):
+        ab["meshless"].append(_wall_ms(torch, lambda: decode(params, cache, tok, pos)))
+        with mesh_context(mesh):
+            ab["mesh"].append(_wall_ms(torch, lambda: decode(dparams, dcache, tok, pos)))
+    same_logits = _bitwise_equal(torch, got, want)
+    toks_got, toks_want = got[1:, :, :V].argmax(-1), want[1:, :, :V].argmax(-1)
+    diff = (got.float() - want.float()).abs().max().item()
+    med = {k: sorted(v)[len(v) // 2] for k, v in ab.items()}
+    log(f"{tag} {BATCH} x {prompt} + {MESH_GEN} tokens, {cfg.n_layers} layers: logits of "
+        f"prefill and every decode step bit for bit: {same_logits} (max |diff| {diff:.3e}); "
+        f"tokens identical: {bool(torch.equal(toks_got, toks_want))}; launches mesh {counts} "
+        f"meshless {want_counts}; decode step {med['mesh']:.3f} ms over the mesh, "
+        f"{med['meshless']:.3f} ms without (median of {MESH_AB_REPS}, alternating: "
+        f"{[round(t, 3) for t in ab['mesh']]} / {[round(t, 3) for t in ab['meshless']]}) "
+        f"on {smi}")
+    if not same_logits or not torch.equal(toks_got, toks_want):
+        raise AssertionError(f"{tag} served over the mesh differs from meshless "
+                             f"(max |diff| {diff:.3e})")
+    if counts != want_counts:
+        raise AssertionError(f"{tag} launches over the mesh {counts} != meshless {want_counts}")
+    return {"arch": arch, "layers": cfg.n_layers, "launches": counts,
+            "decode_ms_mesh": med["mesh"], "decode_ms_meshless": med["meshless"]}
+
+
+def _wall_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _mesh_trainer(mesh, data, cfg, steps, root=None):
+    """``Trainer.fit`` of ``cfg`` to ``steps`` on ``mesh`` (or a device),
+    checkpoints in ``root`` (resumed from when one is there), wired as
+    ``launch/train.py`` wires it."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import Foreactor, OSDevice
+    from repro_torch.data import DataConfig, ShardedTokenDataset, TokenBatchLoader
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    disk = OSDevice()
+    fa = Foreactor(device=disk, backend="io_uring", depth=32)
+    B, S = MESH_TRAIN
+    ds = ShardedTokenDataset(disk, [f"{data}/shard_{i:05d}.rio" for i in range(2)])
+    loader = TokenBatchLoader(ds, DataConfig(seq_len=S, batch_size=B, seed=0), fa=fa)
+    ckpt = None if root is None else CheckpointManager(disk, str(root), fa=fa, num_shards=4)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=3)
+    tcfg = TrainerConfig(steps=steps, ckpt_every=0, log_every=1)
+    try:
+        return Trainer(build_model(cfg), opt, loader, ckpt, mesh, tcfg).fit()
+    finally:
+        loader.close()
+        if ckpt is not None:
+            ckpt.close()
+        fa.shutdown()
+
+
+def _mesh_checks(torch, smi):
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import OSDevice
+    from repro_torch.data import DataConfig, write_synthetic_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import gather, make_host_mesh, mesh_context, replicate
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    tag = "[mesh]"
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh("cuda")
+    if tuple(mesh.shape) != (1, 1) or mesh.mesh_dim_names != ("data", "model"):
+        raise AssertionError(f"{tag} host mesh {mesh}, expected (1, 1) over data, model")
+    readings = {"serve": [], "remat_context": _mesh_remat_context(torch, mesh)}
+    launches = {}
+    for arch, prompt, layers in MESH_SERVE:
+        r = _mesh_serve(torch, smi, mesh, arch, prompt, layers)
+        readings["serve"].append(r)
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the trainer: three steps meshless; over the mesh two steps, a save, a
+    # second trainer that restores it and takes the third
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    cfg = _train_config("tinyllama-1.1b", MESH_TRAIN_LAYERS)
+    B, S = MESH_TRAIN
+    data = MESH_DIR / "data"
+    write_synthetic_dataset(OSDevice(), str(data), DataConfig(seq_len=S, batch_size=B, seed=0),
+                            2, 16, cfg.vocab_size)
+    ops.reset_launch_counts()
+    plain = _mesh_trainer("cuda", data, cfg, 3)
+    plain_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = _mesh_trainer(mesh, data, cfg, 2, MESH_DIR / "ckpt")
+    rest = _mesh_trainer(mesh, data, cfg, 3, MESH_DIR / "ckpt")
+    mesh_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    losses = first["losses"] + rest["losses"]
+    final = [t for t in tree_leaves(gather(rest["state"]))]
+    want = tree_leaves(plain["state"])
+    differ = sum(not _bitwise_equal(torch, a, b) for a, b in zip(final, want))
+    log(f"{tag} trainer, tinyllama-1.1b at {cfg.n_layers} layers, batch {B} x {S}: losses "
+        f"over the mesh {losses} (steps 0-1, save, restore, step 2) vs meshless "
+        f"{plain['losses']}; state leaves differing bit for bit: {differ} of {len(want)}; "
+        f"launches {counts} (meshless {plain_counts}); {mesh_s:.1f} s over the mesh")
+    if losses != plain["losses"] or differ or len(final) != len(want):
+        raise AssertionError(f"{tag} the trainer over the mesh differs from meshless: losses "
+                             f"{losses} vs {plain['losses']}, {differ} leaves")
+    if counts != plain_counts:
+        raise AssertionError(f"{tag} trainer launches over the mesh {counts} != meshless "
+                             f"{plain_counts}")
+    del first, rest, plain, final, want
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one train step: grad norm and loss bit for bit, then the step's overhead
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+    rng = np.random.default_rng(5)
+    seqs = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)).cuda()
+    batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+    step = make_train_step(model, opt)
+    a = make_train_state(model, opt, torch.Generator(device="cuda").manual_seed(0))
+    b = make_train_state(model, opt, torch.Generator(device="cuda").manual_seed(0))
+    _, met_a = step(a, batch)
+    db, dbatch = replicate(b, mesh), replicate(batch, mesh)
+    with mesh_context(mesh):
+        _, met_b = step(db, dbatch)
+        met_b = gather(met_b)
+    ab = {"meshless": [], "mesh": []}
+    for _ in range(MESH_AB_REPS):
+        ab["meshless"].append(_wall_ms(torch, lambda: step(a, batch)))
+        with mesh_context(mesh):
+            ab["mesh"].append(_wall_ms(torch, lambda: step(db, dbatch)))
+    same = {k: _bitwise_equal(torch, met_a[k], met_b[k]) for k in ("loss", "grad_norm")}
+    med = {k: sorted(v)[len(v) // 2] for k, v in ab.items()}
+    log(f"{tag} train step: loss {met_a['loss'].item():.6f} / {met_b['loss'].item():.6f}, grad "
+        f"norm {met_a['grad_norm'].item():.6f} / {met_b['grad_norm'].item():.6f} (meshless / "
+        f"mesh), bit for bit {same}; step {med['mesh']:.2f} ms over the mesh, "
+        f"{med['meshless']:.2f} ms without (median of {MESH_AB_REPS}, alternating: "
+        f"{[round(t, 2) for t in ab['mesh']]} / {[round(t, 2) for t in ab['meshless']]}) "
+        f"on {smi}")
+    if not all(same.values()):
+        raise AssertionError(f"{tag} the train step's metrics over the mesh differ: {same}")
+    readings.update(train_layers=cfg.n_layers, train_step_ms_mesh=med["mesh"],
+                    train_step_ms_meshless=med["meshless"], launches=launches)
+    for name in ("flash_attention_fwd", "flash_decode", "mamba2_scan", "rwkv6_scan"):
+        if not launches.get(name):
+            raise AssertionError(f"{tag} {name} was not launched on the mesh path: {launches}")
+    del a, b, db, dbatch, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    readings["checks_s"] = time.perf_counter() - t_phase
+    log(f"{tag} launches on the mesh path {launches}; {readings['checks_s']:.1f} s")
+    return readings
+
+
+def _mesh_remat_context(torch, mesh):
+    """What a remat recompute sees of ``mesh_context`` on the card, where
+    autograd runs the backward on its device thread: through
+    ``models.common.remat`` the forward's mesh and profile (else no
+    constraint would apply in the recompute); through a bare
+    ``torch.utils.checkpoint``, read for the record."""
+    import threading
+
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models.common import active_mesh, get_sharding_profile, remat
+
+    tag = "[mesh remat]"
+    seen = {}
+
+    def run(wrap, name):
+        def f(x):
+            seen.setdefault(name, []).append((active_mesh() is mesh, get_sharding_profile(),
+                                              threading.get_ident() == main))
+            return (x * 2).sin()
+        x = torch.ones(8, device="cuda", requires_grad=True)
+        with mesh_context(mesh, "fsdp"):
+            wrap(f, x, use_reentrant=False).sum().backward()
+        torch.cuda.synchronize()
+
+    main = threading.get_ident()
+    run(remat, "remat")
+    run(checkpoint, "checkpoint")
+    log(f"{tag} (mesh active, profile, on the calling thread) in the forward and the "
+        f"recompute: remat {seen['remat']}, bare checkpoint {seen['checkpoint']}")
+    if seen["remat"][1][:2] != (True, "fsdp"):
+        raise AssertionError(f"{tag} the recompute under remat did not see the mesh context: "
+                             f"{seen['remat']}")
+    return seen
+
+
+def _mesh_dryrun(smi):
+    """tinyllama-1.1b train_4k on 16x16: the collectives one device issues
+    (``launch.dryrun.trace_mesh`` over a fake 256-rank group) and the
+    roofline with its collective term."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import make_cell, plan, trace_cell, trace_mesh
+    from repro_torch.launch.mesh import make_production_mesh
+
+    tag = "[mesh dryrun]"
+    mesh = make_production_mesh()
+    cell = trace_cell(make_cell("tinyllama-1.1b", "train_4k"))
+    try:
+        trace_mesh(cell, mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    rep = plan(cell, mesh)
+    hlo, roof = rep["hlo"], rep["roofline"]
+    by_kind = {k: v for k, v in hlo["collectives"].items()}
+    log(f"{tag} tinyllama-1.1b train_4k on 16x16 ({rep['profile']}): {hlo['collective_count']} "
+        f"collectives, {hlo['collective_bytes'] / 1e9:.3f} GB a device by kind "
+        f"{ {k: round(v / 1e9, 4) for k, v in by_kind.items()} } GB; roofline compute "
+        f"{roof['compute_s'] * 1e3:.3f} ms, memory {roof['memory_s'] * 1e3:.3f} ms, collective "
+        f"{roof['collective_s'] * 1e3:.3f} ms ({roof['dominant']}); traces "
+        f"{cell.trace_s:.1f} s meshless, {rep['mesh_trace_s']:.1f} s over the mesh; on {smi}")
+    if not hlo["collective_count"] or roof["collective_s"] is None:
+        raise AssertionError(f"{tag} no collectives counted: {hlo}")
+    return {"collectives": by_kind, "collective_count": hlo["collective_count"],
+            "collective_bytes": hlo["collective_bytes"], "collective_s": roof["collective_s"],
+            "compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+            "trace_s": cell.trace_s, "mesh_trace_s": rep["mesh_trace_s"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3352,10 +3698,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     dry = timed("dryrun", phase_dryrun, torch, smi)
     log("[dryrun] " + json.dumps(dict(dry, card=smi)))
+    meshed = timed("mesh", phase_mesh, torch, smi)
+    log("[mesh] " + json.dumps(dict(meshed, card=smi)))
+    gc.collect()
+    torch.cuda.empty_cache()
     iostore = timed("iostore", phase_iostore, smi)
     log("[iostore] " + json.dumps(dict(iostore, card=smi)))
-    for row in rows:  # launches on the served, the trained and the trainer's paths together
-        row["launches"] = sum(r["launches"][row["name"]] for r in results + trained + [trainer])
+    for row in rows:  # launches on the served, trained, trainer's and mesh paths together
+        row["launches"] = sum(r["launches"][row["name"]] for r in results + trained + [trainer]) \
+            + meshed["launches"][row["name"]]
+        row["launches_mesh"] = meshed["launches"][row["name"]]
         row["launches_serve"] = {r["arch"]: r["launches"][row["name"]] for r in results}
         row["launches_train"] = sum(r["launches"][row["name"]] for r in trained)
         row["launches_trainer"] = trainer["launches"][row["name"]]

@@ -32,9 +32,15 @@ What the HLO summary's other keys mean here:
   the counts are already trip-weighted and ``unweighted_dot_flops`` equals
   ``dot_flops``;
 * ``collective_bytes``, ``collectives`` and ``collective_count`` are
-  ``None``: a single process issues no collectives, so there is nothing to
-  count (``collective_reason``).  Counting them needs the step over
-  DTensors on a fake many-rank group (ROADMAP A6b).
+  ``None`` after ``trace_costs``: a single process issues no collectives
+  (``collective_reason``).  ``trace_collectives`` counts them: it runs the
+  step over DTensors on a fake many-rank group and sums, per kind, the
+  result bytes of each collective one rank issues (the reference sums the
+  result shapes of its per-device HLO), and ``with_collectives`` puts them
+  in a summary.  On a CPU mesh DTensor moves a shard from one dim to
+  another by an all-gather and a chunk (gloo has no all-to-all); the
+  trace issues the all-to-all op a CUDA mesh issues instead, so that it
+  is counted as one, at its own bytes.
 
 Known difference from the reference's counts: the plain blockwise
 attention (``kernels/ref.py:attention_blockwise``) skips key blocks wholly
@@ -55,7 +61,20 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 COLLECTIVE_REASON = ("single process: no collectives are issued; counting them needs "
-                     "the step over DTensors on a fake many-rank group (ROADMAP A6b)")
+                     "the step over DTensors on a fake many-rank group (trace_collectives)")
+#: the reference's collective kinds (``analysis/hlo.py``) and the ops of
+#: each: the functional collectives DTensor issues, and its all-to-all
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+_KIND_OF = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "permute_tensor": "collective-permute",
+}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
 
 _aten = torch.ops.aten
 _TRANSCENDENTAL = {_aten.exp, _aten.exp2, _aten.expm1, _aten.log, _aten.log1p, _aten.log2,
@@ -85,6 +104,14 @@ class CostSummary:
     @property
     def unweighted_dot_flops(self) -> float:
         return self.dot_flops
+
+    def with_collectives(self, by_kind: Dict[str, float], count: int,
+                         reason: str) -> "CostSummary":
+        """This summary with the collective counts of one rank (already per
+        device: ``per_device`` leaves them)."""
+        return replace(self, collectives=dict(by_kind), collective_count=count,
+                       collective_bytes=float(sum(by_kind.values())),
+                       collective_reason=reason)
 
     def per_device(self, n: int) -> "CostSummary":
         return replace(self, dot_flops=self.dot_flops / n, dot_bytes=self.dot_bytes / n,
@@ -179,6 +206,56 @@ class _CostMode(TorchDispatchMode):
             s.bytes_accessed += sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
         self._hold(out, ins)
         return out
+
+
+class _CollectiveMode(TorchDispatchMode):
+    """Counts the collectives one rank issues: a DTensor op is handed back
+    to DTensor (``NotImplemented``), whose local ops, collectives included,
+    then come through here."""
+
+    def __init__(self):
+        super().__init__()
+        self.by_kind = {k: 0.0 for k in COLLECTIVE_KINDS}
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(t is DTensor for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if isinstance(func, torch._ops.OpOverload) and func.namespace in _COLLECTIVE_NAMESPACES:
+            kind = _KIND_OF.get(func._overloadpacket._qualified_op_name.split("::")[-1])
+            if kind is not None:
+                self.by_kind[kind] += sum(_nbytes(t) for t in _tensors(out))
+                self.count += 1
+        return out
+
+
+def _alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's shard-to-shard move as the one all-to-all a CUDA mesh
+    issues (``_collective_utils.shard_dim_alltoall`` without its CPU
+    fallback)."""
+    return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim,
+                                                 mesh.get_group(mesh_dim).group_name)
+
+
+def trace_collectives(fn, *args, **kwargs) -> Tuple[Any, Dict[str, float], int]:
+    """``fn(*args, **kwargs)`` counting the collectives this rank issues:
+    (its result, result bytes by kind, the number of collectives).  For
+    traces on ``meta`` tensors over a fake group: the all-to-alls are
+    issued as on a CUDA mesh."""
+    from torch.distributed.tensor import placement_types
+
+    mode = _CollectiveMode()
+    fallback = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = _alltoall
+    try:
+        with mode:
+            out = fn(*args, **kwargs)
+    finally:
+        placement_types.shard_dim_alltoall = fallback
+    return out, mode.by_kind, mode.count
 
 
 def trace_costs(fn, *args, **kwargs) -> Tuple[Any, CostSummary]:

@@ -32,6 +32,14 @@ step's values into the state's own buffers, so :meth:`save_async` copies
 every leaf into host memory it owns (pinned, reused across saves) before
 the next step can write; a device leaf's copy is stream-ordered ahead of
 that step, and the writer thread waits on its event.
+
+Over a mesh (a tree with DTensor leaves) the files are the same: every rank
+gathers each leaf to its full tensor on the calling thread, before the
+snapshot, so that no collective runs on the writer thread, where it could
+deadlock against the next step's; rank 0 snapshots and writes, the other
+ranks write nothing and meet it at a barrier once its save has committed
+(at the end of :meth:`save`; for :meth:`save_async`, wherever the save in
+flight is joined).  A restore returns the whole tree on every rank.
 """
 
 from __future__ import annotations
@@ -104,6 +112,22 @@ def _host_view(x: Any) -> _HostLeaf:
                          t.reshape(-1).view(torch.uint8).numpy())
     a = np.ascontiguousarray(x)
     return _HostLeaf(str(a.dtype), tuple(a.shape), a.reshape(-1).view(np.uint8))
+
+
+def _gather(tree: Any) -> Tuple[Any, Optional[int]]:
+    """``tree`` with each DTensor leaf gathered to its full tensor on this
+    thread, and this process's rank; the rank is None when no leaf is a
+    DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not any(isinstance(x, DTensor) for x in tree_leaves(tree)):
+        return tree, None
+    full = [x.full_tensor() if isinstance(x, DTensor) else x for x in tree_leaves(tree)]
+    return tree_unflatten(tree, full), torch.distributed.get_rank()
+
+
+def _barrier() -> None:
+    torch.distributed.barrier()
 
 
 class _Snapshot:
@@ -505,6 +529,8 @@ class CheckpointManager:
         self.fa.register("ckpt_gc", build_gc_graph)
         self._async_thread: Optional[threading.Thread] = None
         self._async_error: Optional[BaseException] = None
+        #: a save of a mesh's tree is in flight: its join ends at a barrier
+        self._mesh_pending = False
         # serializes save_async/wait_pending: starting a second background
         # save MUST join-or-raise the first (losing its error or orphaning
         # its thread would silently drop a checkpoint)
@@ -645,11 +671,17 @@ class CheckpointManager:
         caller leaves them unchanged until this returns.
         """
         t0 = time.perf_counter()
+        tree, rank = _gather(tree)
         with self._async_lock:
             self._join_pending_locked()
+            if rank:  # not rank 0 of a mesh: rank 0 writes
+                _barrier()
+                return
             snap = self._snapshot(tree, copy=False)
             snap.wait()
             written = self._write(step, snap, extra, delta)
+            if rank is not None:
+                _barrier()
         self._log_save(step, "sync", t0, snap, written)
 
     def _write(self, step: int, snap: _Snapshot, extra: Optional[Dict[str, Any]],
@@ -809,8 +841,12 @@ class CheckpointManager:
         returns, device leaves by copies enqueued ahead of the caller's next
         step, which the background thread waits for.  The caller may write
         into the tree's buffers as soon as this returns."""
+        tree, rank = _gather(tree)
         with self._async_lock:
             self._join_pending_locked()
+            self._mesh_pending = rank is not None
+            if rank:  # not rank 0 of a mesh: rank 0 writes
+                return
             t0 = time.perf_counter()
             snap = self._snapshot(tree, copy=True)
 
@@ -834,6 +870,9 @@ class CheckpointManager:
         if self._async_thread is not None:
             self._async_thread.join()
             self._async_thread = None
+        if self._mesh_pending:
+            self._mesh_pending = False
+            _barrier()
         if self._async_error is not None:
             e, self._async_error = self._async_error, None
             raise CheckpointError(f"async checkpoint save failed: {e!r}") from e

@@ -13,12 +13,20 @@ tensors under ``analysis.cost.trace_costs`` and records, per device:
   global batch as one device);
 * the cost counts (``cost`` and the ``hlo``-keyed block, whose keys are
   the reference's), divided by the mesh's size, ``model_flops`` per
-  device, and the roofline of one H100 (``analysis/roofline.py``), with
-  no collective term: a single process issues no collectives;
+  device, and the roofline of one H100 (``analysis/roofline.py``);
+* for train and decode cells (``trace_mesh``), the collectives one device
+  issues: the cell's meta trees laid out by ``cell_specs`` as DTensors on
+  a ``DeviceMesh`` of the production shape over a fake process
+  group of as many ranks, the step traced again under
+  ``mesh_context(mesh, cell.profile)``, and the result bytes of each
+  collective summed by kind (``analysis.cost.trace_collectives``): the
+  ``collective_*`` fields and the roofline's collective term.  A prefill
+  cell's stay null with their reason (``PREFILL_REASON``);
 * resident + temporary bytes per device against the card's HBM.
 
-The trace does not depend on the mesh, so each cell is traced once and
-planned on every mesh asked for.  The trace follows the plain versions of
+The FLOP and byte counts do not depend on the mesh, so each cell is traced
+once without one and planned on every mesh asked for; only the
+collectives need a trace on each mesh.  The trace follows the plain versions of
 the kernels (meta tensors are not CUDA tensors), which hold more memory
 than the kernels.
 
@@ -40,16 +48,16 @@ import os
 import sys
 import time
 import traceback
-from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Union
+from dataclasses import dataclass, field, replace
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.analysis.cost import CostSummary, trace_costs
+from repro_torch.analysis.cost import CostSummary, trace_collectives, trace_costs
 from repro_torch.analysis.roofline import HW, model_flops, roofline_from_report
 from repro_torch.configs import ARCH_IDS, SHAPES, SKIP_CELLS, ShapeSpec, get_config, resolve
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.mesh import abstract, make_production_mesh
+from repro_torch.launch.mesh import abstract, make_production_mesh, mesh_context
 from repro_torch.launch.specs import cache_shape, decode_specs, input_specs
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step, make_train_step,
                                       train_state_shape)
@@ -71,6 +79,8 @@ class Cell:
     trees: Dict[str, Any]   # the step's inputs by role: state|params, batch|cache
     cost: Optional[CostSummary] = None
     trace_s: Optional[float] = None
+    #: mesh name -> (result bytes by kind, number of collectives, trace s)
+    collectives: Dict[str, Tuple[Dict[str, float], int, float]] = field(default_factory=dict)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -147,6 +157,68 @@ def cell_specs(cell: Cell, mesh) -> Dict[str, Any]:
     return out
 
 
+def fake_mesh(mesh):
+    """A CPU ``DeviceMesh`` of ``mesh``'s axes over a fake process group
+    of as many ranks, this process rank 0 (any default group is replaced:
+    destroy it with ``torch.distributed.destroy_process_group``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    mesh = abstract(mesh)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    return DeviceMesh("cpu", torch.arange(mesh.size).reshape(mesh.axis_sizes),
+                      mesh_dim_names=mesh.axis_names)
+
+
+def _on_mesh(t: torch.Tensor, spec, dmesh):
+    """A meta leaf as the DTensor its spec makes of it: rank 0's shard."""
+    from torch.distributed.tensor import DTensor
+
+    local = list(t.shape)
+    for d, axis in enumerate(spec):
+        local[d] //= shd.shard_count((axis,), dmesh)
+    return DTensor.from_local(torch.empty(local, dtype=t.dtype, device="meta"), dmesh,
+                              shd.placements(spec, dmesh), run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+#: the kinds of cell ``main`` traces again over a fake mesh for their collectives
+MESH_TRACED = ("train", "decode")
+PREFILL_REASON = ("prefill cells are not traced over a mesh: the meshless prefill_32k "
+                  "trace already takes minutes on a CPU, and DTensor dispatch is slower "
+                  "per op")
+
+
+def trace_mesh(cell: Cell, mesh) -> Cell:
+    """The cell's step over its trees laid out on ``mesh`` (``cell_specs``),
+    on a fake process group (``fake_mesh``), under the cell's profile;
+    records the collectives one device issues in ``cell.collectives``."""
+    from repro_torch.tree import tree_map
+
+    dmesh = fake_mesh(mesh)
+    specs = cell_specs(cell, dmesh)
+    t = {k: tree_map(lambda x, s: _on_mesh(x, s, dmesh), cell.trees[k], specs[k])
+         for k in specs}
+    model = cell.model
+    t0 = time.perf_counter()
+    with mesh_context(dmesh, cell.profile):
+        if cell.shape.kind == "train":
+            step, args = make_train_step(model, cell.opt_cfg), (t["state"], t["batch"])
+        elif cell.shape.kind == "prefill":
+            step, args = make_prefill_step(model, cell.shape.seq_len), (t["params"], t["batch"])
+        else:
+            tok, pos = (_on_mesh(x, shd.spec_from_prefs(x.shape, [(-1, "dp")], dmesh,
+                                                        cell.profile), dmesh)
+                        for x in decode_specs(model.cfg, cell.shape))
+            step, args = make_decode_step(model), (t["params"], t["cache"], tok, pos)
+        _, by_kind, count = trace_collectives(step, *args)
+    cell.collectives[mesh_name(mesh)] = (by_kind, count, time.perf_counter() - t0)
+    return cell
+
+
 def resident_on(cell: Cell, mesh) -> int:
     """The cell's resident bytes per device on ``mesh``."""
     specs = cell_specs(cell, mesh)
@@ -166,6 +238,14 @@ def plan(cell: Cell, mesh) -> Dict[str, Any]:
     resident = resident_on(cell, mesh)
     arguments = sum(_nbytes(x) for x in tree_leaves(list(cell.trees.values())))
     dev = cell.cost.per_device(n)
+    mesh_trace_s = None
+    if mesh_name(mesh) in cell.collectives:
+        by_kind, count, mesh_trace_s = cell.collectives[mesh_name(mesh)]
+        dev = dev.with_collectives(
+            by_kind, count, f"one device of {mesh_name(mesh)}, counted over DTensors on a "
+            f"fake {n}-rank group")
+    elif cell.shape.kind not in MESH_TRACED:
+        dev = replace(dev, collective_reason=PREFILL_REASON)
     hw = HW()
     hbm = resident + dev.peak_bytes
     mflops = model_flops(cell.model.cfg, cell.shape, cell.shape.kind) / n
@@ -176,6 +256,7 @@ def plan(cell: Cell, mesh) -> Dict[str, Any]:
         "profile": cell.profile,
         "devices": n,
         "lower_s": round(cell.trace_s, 2),  # the meta trace
+        "mesh_trace_s": None if mesh_trace_s is None else round(mesh_trace_s, 2),
         "compile_s": None,                   # eager torch compiles nothing
         "memory": {
             "argument_bytes": arguments,
@@ -211,7 +292,11 @@ def write_report(report: Dict[str, Any], out_dir: str, tag: str = "") -> Dict[st
           f"({mem['hbm_share']:.1%} of {_gb(mem['hbm_capacity_bytes'])})  "
           f"dotflops/dev={report['hlo']['dot_flops']:.3e} "
           f"(model {report['model_flops_per_dev']:.3e})  "
-          f"bound={roof['bound_s'] * 1e3:.3f}ms ({roof['dominant']})", flush=True)
+          f"bound={roof['bound_s'] * 1e3:.3f}ms ({roof['dominant']})"
+          + ("" if report["hlo"]["collective_bytes"] is None else
+             f"  coll/dev={_gb(report['hlo']['collective_bytes'])} in "
+             f"{report['hlo']['collective_count']} (mesh trace={report['mesh_trace_s']:.1f}s)"),
+          flush=True)
     return report
 
 
@@ -263,11 +348,16 @@ def main(argv: Optional[List[str]] = None) -> None:
             continue
         for mp in meshes:
             try:
-                write_report(plan(cell, make_production_mesh(multi_pod=mp)), args.out, args.tag)
+                mesh = make_production_mesh(multi_pod=mp)
+                if cell.shape.kind in MESH_TRACED:
+                    trace_mesh(cell, mesh)
+                write_report(plan(cell, mesh), args.out, args.tag)
             except Exception as e:
                 failures.append((a, s, mp, repr(e)))
                 print(f"[dryrun] FAIL {a} {s} multi_pod={mp}: {e}", flush=True)
                 traceback.print_exc()
+    if torch.distributed.is_initialized():  # the fake group of trace_mesh
+        torch.distributed.destroy_process_group()
     print(f"[dryrun] {len(cells)} cells traced in {time.perf_counter() - t_all:.1f} s")
     if failures:
         print(f"\n{len(failures)} FAILURES:")

@@ -21,6 +21,14 @@ Runs on the card unless ``--device cpu`` is given; with no card and no
 ``--device cpu`` it raises.  Weights are random, from a seeded
 ``torch.Generator`` on the device.  The first generate call includes the
 kernels' build; the second is the warm time.
+
+Under ``torchrun`` it serves over the host mesh, as the reference's launcher
+serves under ``mesh_context(make_host_mesh())``: one process a card (nccl),
+or with ``--device cpu`` gloo ranks; every rank makes the same weights and
+prompts, the weights replicated, the prompts' rows split over the ranks
+(``--batch`` divisible by the world size), and only rank 0 prints:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --smoke --device cpu
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import gather, launch_mesh, mesh_context, replicate, shard_batch
 from repro_torch.launch.steps import make_generate_loop, make_prefill_step
 from repro_torch.models import build_model
 
@@ -64,7 +73,19 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev, mesh = launch_mesh(resolve_device(args.device))
+    if mesh is None:
+        _serve(args, dev, None)
+        return
+    try:
+        with mesh_context(mesh):
+            _serve(args, dev, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _serve(args, dev: torch.device, mesh) -> None:
+    say = print if mesh is None or torch.distributed.get_rank() == 0 else _quiet
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -78,6 +99,8 @@ def main(argv=None) -> None:
         batch["frames"] = torch.randn((args.batch, cfg.enc_dec.n_audio_ctx, cfg.d_model),
                                       generator=gen, device=dev)
 
+    if mesh is not None:
+        params, batch = replicate(params, mesh), shard_batch(batch, mesh)
     generate = make_generate_loop(model, args.gen)
     max_len = args.prompt_len + args.gen + 1
     t0 = time.perf_counter()
@@ -86,21 +109,21 @@ def main(argv=None) -> None:
     t_first = time.perf_counter() - t0
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    toks = generate(params, batch, max_len)
+    toks = gather(generate(params, batch, max_len))
     _sync(dev)
     t_warm = time.perf_counter() - t0
     tput = args.batch * args.gen / t_warm
-    print(f"[serve] generated {tuple(toks.shape)} tokens; "
+    say(f"[serve] generated {tuple(toks.shape)} tokens; "
           f"first(incl build)={t_first:.2f}s warm={t_warm*1e3:.0f}ms "
           f"({tput:.0f} tok/s)")
     if cfg.visual_stub:
-        print(f"[serve] visual embeddings {tuple(batch['visual_embeds'].shape)} over the "
+        say(f"[serve] visual embeddings {tuple(batch['visual_embeds'].shape)} over the "
               f"first {N_IMG} prompt slots")
     if cfg.enc_dec is not None:
-        print(f"[serve] audio frame embeddings {tuple(batch['frames'].shape)} through the "
+        say(f"[serve] audio frame embeddings {tuple(batch['frames'].shape)} through the "
               f"encoder")
-    print("[serve] sample:", toks[0, :12].tolist())
-    print("[serve] kernel launches (warm run):", ops.launch_counts())
+    say("[serve] sample:", toks[0, :12].tolist())
+    say("[serve] kernel launches (warm run):", ops.launch_counts())
     prefill = make_prefill_step(model, max_len)
     t_prefill = []
     for _ in range(3):
@@ -109,8 +132,12 @@ def main(argv=None) -> None:
         _sync(dev)
         t_prefill.append(time.perf_counter() - t0)
     pf = min(t_prefill)
-    print(f"[serve] prefill {pf*1e3:.2f} ms (min of 3), "
+    say(f"[serve] prefill {pf*1e3:.2f} ms (min of 3), "
           f"decode {(t_warm - pf)*1e3/args.gen:.3f} ms/step (warm generate less prefill)")
+
+
+def _quiet(*args, **kwargs) -> None:
+    pass
 
 
 if __name__ == "__main__":

@@ -29,9 +29,9 @@ keeps (the parity contract).  Meshes are ``launch.mesh.AbstractMesh`` or a
 placements on a ``DeviceMesh``.
 
 The reference's sharding profile is a global set before lowering and read
-by its activation constraints (``models/common.py``); here ``profile`` is
-an argument, and there is no activation constraint: eager single-process
-torch has no GSPMD to pin.
+by its activation constraints (``models/common.py``); here the rules take
+``profile`` as an argument, and the port's activation constraints read the
+profile of the enclosing ``launch.mesh.mesh_context``.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.launch.mesh import abstract
+from repro_torch.models.common import spec_placements as placements
 from repro_torch.tree import tree_map, tree_map_with_path
 
 Axis = Optional[Union[str, Tuple[str, ...]]]
@@ -219,22 +220,6 @@ def shard_count(spec: Spec, mesh) -> int:
         for a in (() if axis is None else axis if isinstance(axis, tuple) else (axis,)):
             n *= mesh.shape[a]
     return n
-
-
-def placements(spec: Spec, device_mesh) -> list:
-    """DTensor placements of a spec on ``device_mesh``: for each mesh
-    dimension ``Shard(d)`` if the spec puts that axis on tensor dim ``d``,
-    else ``Replicate()``.  A tuple entry shards one tensor dimension over
-    several mesh dimensions, in mesh order (the spec's tuples list the data
-    axes in mesh order, major first)."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    dim_of = {}
-    for d, axis in enumerate(spec):
-        for a in (() if axis is None else axis if isinstance(axis, tuple) else (axis,)):
-            dim_of[a] = d
-    return [Shard(dim_of[a]) if a in dim_of else Replicate()
-            for a in device_mesh.mesh_dim_names]
 
 
 def distribute(tree: Any, specs: Any, device_mesh) -> Any:

@@ -8,6 +8,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models.api import Model
+from repro_torch.models.common import active_mesh, is_dtensor
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -36,6 +37,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
     loss never reads (the plain GELU MLP's ``wg``) gets a zero gradient, as
     in the reference.  The metrics are 0-d tensors on the params' device;
     nothing waits for the device.
+
+    Over a mesh (DTensor params, inside ``mesh_context``) each gradient is
+    brought to its param's placements before the update: a replicated
+    param's gradient, a partial sum over the ranks that split the batch, is
+    all-reduced once, so every rank applies the same update.
     """
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
@@ -43,6 +49,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
             loss = model.loss(params, batch)
             grads = tree_unflatten(params, torch.autograd.grad(
                 loss, tree_leaves(params), allow_unused=True, materialize_grads=True))
+        grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                         if is_dtensor(g) else g, grads, params)
         new_params, new_opt, metrics = adamw_update(opt_cfg, state["params"], grads,
                                                     state["opt"])
         metrics = dict(metrics, loss=loss.detach())
@@ -51,9 +59,15 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
     return train_step
 
 
+def _serving_mode():
+    """``inference_mode``; over a mesh ``no_grad``, since DTensor views
+    cannot be made inside ``inference_mode``."""
+    return torch.no_grad() if active_mesh() is not None else torch.inference_mode()
+
+
 def make_prefill_step(model: Model, max_len: int):
     def prefill_step(params, batch):
-        with torch.inference_mode():
+        with _serving_mode():
             return model.prefill(params, batch, max_len)
 
     return prefill_step
@@ -61,7 +75,7 @@ def make_prefill_step(model: Model, max_len: int):
 
 def make_decode_step(model: Model):
     def decode_step(params, cache, token, pos):
-        with torch.inference_mode():
+        with _serving_mode():
             return model.decode_step(params, cache, token, pos)
 
     return decode_step
@@ -76,7 +90,7 @@ def make_generate_loop(model: Model, steps: int):
     V = model.cfg.vocab_size
 
     def generate(params, batch, max_len):
-        with torch.inference_mode():
+        with _serving_mode():
             logits, cache = model.prefill(params, batch, max_len)
             B, S = batch["tokens"].shape
             tok = logits[:, :V].argmax(-1)

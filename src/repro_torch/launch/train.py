@@ -16,17 +16,31 @@ qwen2-vl-7b) are refused, as the reference's driver refuses them.
 Runs on the card unless ``--device cpu`` is given; with no card and no
 ``--device cpu`` it raises.  The checkpoints are the reference package's
 format: either package restores the other's.
+
+Under ``torchrun`` it trains over the host mesh (one process a card, nccl;
+or gloo ranks with ``--device cpu``) under the default "tp" sharding
+profile, as the reference's launcher does: every rank loads the same
+global batch and keeps its rows, rank 0 writes the checkpoints (resumable
+on any number of ranks) and only rank 0 prints:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \
+        --steps 8 --batch 4 --seq 64 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+
+import torch
 
 from repro_torch.checkpoint import CheckpointManager, CheckpointPolicy
 from repro_torch.configs import get_config
 from repro_torch.core import Foreactor, OSDevice
 from repro_torch.data import (DataConfig, ShardedTokenDataset, TokenBatchLoader,
                               write_synthetic_dataset)
+from repro_torch.launch.mesh import launch_mesh
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim.adamw import AdamWConfig
@@ -66,7 +80,20 @@ def main(argv=None) -> None:
                     help="torch device to train on (default cuda)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev, mesh = launch_mesh(resolve_device(args.device))
+    if mesh is None:
+        _train(args, dev)
+        return
+    quiet = torch.distributed.get_rank() != 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+            _train(args, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _train(args, dev) -> None:
+    """The run on ``dev``: a device, or the mesh of the ranks."""
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.enc_dec is not None or cfg.visual_stub:  # as the reference's driver refuses
         raise SystemExit("train driver covers LM archs: its batches hold tokens only, "
@@ -77,12 +104,16 @@ def main(argv=None) -> None:
 
     dcfg = DataConfig(seq_len=args.seq, batch_size=args.batch, seed=0)
     shard0 = f"{args.data}/shard_00000.rio"
-    try:
-        device.fstatat(shard0)
-    except FileNotFoundError:
-        print(f"[train] generating synthetic dataset under {args.data}")
-        write_synthetic_dataset(device, args.data, dcfg, args.shards,
-                                args.records_per_shard, cfg.vocab_size)
+    ranked = torch.distributed.is_initialized()
+    if not ranked or torch.distributed.get_rank() == 0:  # one writer
+        try:
+            device.fstatat(shard0)
+        except FileNotFoundError:
+            print(f"[train] generating synthetic dataset under {args.data}")
+            write_synthetic_dataset(device, args.data, dcfg, args.shards,
+                                    args.records_per_shard, cfg.vocab_size)
+    if ranked:
+        torch.distributed.barrier()
     ds = ShardedTokenDataset(
         device, [f"{args.data}/shard_{i:05d}.rio" for i in range(args.shards)])
     loader = TokenBatchLoader(ds, dcfg, fa=fa)

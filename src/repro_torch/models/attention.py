@@ -26,11 +26,10 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from .common import (apply_mrope, apply_norm, apply_rope, dense_init, init_device,
-                     norm_init)
+from .common import (apply_mrope, apply_norm, apply_rope, constrain_dims, dense_init,
+                     init_device, is_dtensor, norm_init, zero_pad)
 from .config import ModelConfig
 
 Tensors = Dict[str, torch.Tensor]
@@ -53,8 +52,25 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator) -> Tensors:
     return p
 
 
+def _split(w: torch.Tensor) -> bool:
+    """A DTensor that is not whole on every rank (the dry-run lays weights
+    out by their specs; the trainer and server replicate them)."""
+    return is_dtensor(w) and not all(p.is_replicate() for p in w.placements)
+
+
+def _whole(w: torch.Tensor) -> torch.Tensor:
+    """A split DTensor weight gathered whole: DTensor splits the products
+    of a split (heads, head_dim) weight, and their gradients, along the
+    flat (H * hd) dim where the heads do not divide, and then cannot
+    regroup them into (H, hd)."""
+    from torch.distributed.tensor import Replicate
+    return w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum('bsd,dhk->bshk') as one matrix product."""
+    """einsum('bsd,dhk->bshk') as one matrix product (over a split DTensor
+    weight, gathered whole first: :func:`_whole`)."""
+    w = _whole(w) if _split(w) else w
     D, H, hd = w.shape
     return (x @ w.to(x.dtype).reshape(D, H * hd)).unflatten(-1, (H, hd))
 
@@ -73,11 +89,17 @@ def _qkv(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
     elif cfg.rope_type == "standard":  # "none": no position encoding
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    # heads on "model"; where the head count does not divide it (28 heads,
+    # MQA) q falls back to the sequence and k/v stay replicated over it
+    q = constrain_dims(q, {0: "dp", 2: "model", 1: "model"})
+    k = constrain_dims(k, {0: "dp", 2: "model"})
+    v = constrain_dims(v, {0: "dp", 2: "model"})
     return q, k, v
 
 
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum('bshk,hkd->bsd') as one matrix product; o is (B,S,H,hd)."""
+    wo = _whole(wo) if _split(wo) else wo
     H, hd, D = wo.shape
     return o.reshape(*o.shape[:2], H * hd) @ wo.to(o.dtype).reshape(H * hd, D)
 
@@ -88,7 +110,8 @@ def attn_apply(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
     q, k, v = _qkv(cfg, p, x, positions)
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                       causal=causal, impl=cfg.attn_impl)
-    return _out(o.transpose(1, 2), p["wo"])
+    o = constrain_dims(o.transpose(1, 2), {0: "dp", 2: "model", 1: "model"})
+    return _out(o, p["wo"])
 
 
 def attn_init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -111,16 +134,33 @@ def attn_prefill(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
     return _out(o.transpose(1, 2), p["wo"]), cache
 
 
+def _write_rows(cache: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> None:
+    """cache[b, idx[b]] = val[b] for every row b, in place.  A DTensor cache
+    (rows over the data axes, as ``lm.init_cache`` lays it out) is written
+    shard by shard: DTensor has no in-place indexed write on a sharded dim."""
+    if is_dtensor(cache):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        mesh = cache.device_mesh
+        rows = [p if p == Shard(0) else Replicate() for p in cache.placements]
+
+        def local(t):
+            if not is_dtensor(t):
+                t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            return t.redistribute(mesh, rows).to_local()
+
+        cache, idx, val = cache.to_local(), local(idx), local(val)
+    cache[torch.arange(cache.shape[0], device=cache.device), idx] = val
+
+
 def attn_decode(cfg: ModelConfig, p: Tensors, x: torch.Tensor, pos: torch.Tensor,
                 cache: Tensors) -> Tuple[torch.Tensor, Tensors]:
     """x: (B,1,D); pos: (B,) int32 current position; in-cache attention."""
     B = x.shape[0]
     positions = pos[None, :, None].expand(3, B, 1) if cfg.rope_type == "mrope" else pos[:, None]
     q, k, v = _qkv(cfg, p, x, positions)
-    rows = torch.arange(B, device=x.device)
     idx = pos.long()
-    cache["k"][rows, idx] = k[:, 0]
-    cache["v"][rows, idx] = v[:, 0]
+    _write_rows(cache["k"], idx, k[:, 0])
+    _write_rows(cache["v"], idx, v[:, 0])
     o = ops.decode_attention(q[:, 0], cache["k"].transpose(1, 2),
                              cache["v"].transpose(1, 2), pos + 1,
                              impl=cfg.attn_impl)
@@ -159,7 +199,9 @@ def _mla_qkv(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
     ckv = apply_norm(cfg, p["kv_norm"], ckv_full[..., :m.kv_lora])
     q_pe = apply_rope(q[..., m.qk_nope:], positions, cfg.rope_theta)
     k_pe = apply_rope(ckv_full[..., None, m.kv_lora:], positions, cfg.rope_theta)[:, :, 0]
-    return q[..., :m.qk_nope], q_pe, ckv, k_pe
+    q_nope = constrain_dims(q[..., :m.qk_nope], {0: "dp", 2: "model"})
+    q_pe = constrain_dims(q_pe, {0: "dp", 2: "model"})
+    return q_nope, q_pe, ckv, k_pe
 
 
 def _mla_attend(cfg: ModelConfig, p: Tensors, q_nope: torch.Tensor, q_pe: torch.Tensor,
@@ -167,14 +209,15 @@ def _mla_attend(cfg: ModelConfig, p: Tensors, q_nope: torch.Tensor, q_pe: torch.
     """Per-head keys and values from the latent, attention at head_dim
     qk_nope + qk_rope (V zero-padded to it, sliced back), then ``wo``."""
     m = cfg.mla
-    k_nope = _proj(ckv, p["k_up"])
-    v = _proj(ckv, p["v_up"])
+    k_nope = constrain_dims(_proj(ckv, p["k_up"]), {0: "dp", 2: "model"})
+    v = constrain_dims(_proj(ckv, p["v_up"]), {0: "dp", 2: "model"})
     q = torch.cat([q_nope, q_pe], -1)
     k = torch.cat([k_nope, k_pe[:, :, None].expand(*k_nope.shape[:3], m.qk_rope)], -1)
-    v = F.pad(v, (0, q.shape[-1] - m.v_head))
+    v = zero_pad(v, (0, q.shape[-1] - m.v_head))
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
                       scale=(m.qk_nope + m.qk_rope) ** -0.5, impl=cfg.attn_impl)
-    return _out(o.transpose(1, 2)[..., :m.v_head], p["wo"])
+    o = constrain_dims(o.transpose(1, 2)[..., :m.v_head], {0: "dp", 2: "model"})
+    return _out(o, p["wo"])
 
 
 def mla_apply(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
@@ -226,12 +269,10 @@ def mla_decode(cfg: ModelConfig, p: Tensors, x: torch.Tensor, pos: torch.Tensor,
     space (``k_up`` absorbed), so attention reads the (kv_lora + qk_rope)
     cache directly: the MLA serving trick."""
     m = cfg.mla
-    B = x.shape[0]
     q_nope, q_pe, ckv, k_pe = _mla_qkv(cfg, p, x, pos[:, None])
-    rows = torch.arange(B, device=x.device)
     idx = pos.long()
-    cache["ckv"][rows, idx] = ckv[:, 0]
-    cache["kpe"][rows, idx] = k_pe[:, 0]
+    _write_rows(cache["ckv"], idx, ckv[:, 0])
+    _write_rows(cache["kpe"], idx, k_pe[:, 0])
     q_lat = torch.einsum("bhk,lhk->bhl", q_nope[:, 0], p["k_up"].to(x.dtype))
     ctx = mla_latent_attention(q_lat, q_pe[:, 0], cache["ckv"], cache["kpe"], pos + 1,
                                (m.qk_nope + m.qk_rope) ** -0.5)

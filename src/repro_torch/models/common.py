@@ -5,13 +5,19 @@ Plain functions on tensors, twins of the reference package's
 ``torch.Generator`` on the generator's device, with the reference's
 distributions (the numbers differ: the two frameworks' generators differ);
 under ``with torch.device("meta")`` they make shapes only (``init_device``).
-Sharding constraints are not ported: the port runs on one device.
+
+The activation constraints (``constrain_dims`` and its two shorthands) pin
+a DTensor's dims to the axes of the mesh that ``launch.mesh.mesh_context``
+made active, by the reference's rules; on a plain tensor, or with no mesh
+active, they return their argument itself, so the meshless path is the one
+it was before they existed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from contextvars import ContextVar, copy_context
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -140,13 +146,33 @@ def embed_tokens(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
                  tokens: torch.Tensor) -> torch.Tensor:
     # index first, then cast: bit-identical to the reference's cast-then-index
     # without a full-table cast per step
-    x = emb["tok"][tokens].to(cfg.compute_tdtype())
+    x = (_lookup_on_shards(emb["tok"], tokens) if is_dtensor(tokens)
+         else emb["tok"][tokens]).to(cfg.compute_tdtype())
     if cfg.scale_embed:
         # the reference rounds sqrt(d_model) to x's dtype first (bf16:
         # sqrt(3072) = 55.43 becomes 55.5); the product of that scalar and
         # x, computed in fp32 and rounded once, is the reference's
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     return x
+
+
+def _lookup_on_shards(table: torch.Tensor, tokens) -> torch.Tensor:
+    """``table[tokens]`` over a mesh: each rank looks its own token rows up
+    in the whole table, as the meshless path does.  DTensor's rules for a
+    lookup fail in torch 2.11 (indices split over two mesh dims; the
+    backward's ``index_put``) and in 2.13 (a table split over "model"
+    under tp).  A split table (the dry-run's) is gathered whole; its
+    gradient is a partial sum over the axes that split the tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = tokens.device_mesh
+    rows = [p if p.is_shard(0) else Replicate() for p in tokens.placements]
+    if not is_dtensor(table):
+        table = DTensor.from_local(table, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if p.is_shard(0) else Replicate() for p in rows])
+    return DTensor.from_local(whole[tokens.redistribute(mesh, rows).to_local()], mesh, rows,
+                              run_check=False)
 
 
 def merge_visual(cfg: ModelConfig, x: torch.Tensor,
@@ -185,13 +211,32 @@ def lm_head_logits(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
 def _xent_chunk(cfg: ModelConfig, hh: torch.Tensor, wf: torch.Tensor,
                 labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked next-token loss summed over one (B, C) chunk."""
-    logits = _softcap(cfg, hh.float() @ wf.t())  # (B,C,V) float32
+    logits = constrain_dims(_softcap(cfg, hh.float() @ wf.t()),  # (B,C,V) float32
+                            {0: "dp", 2: "model"})
     if cfg.padded_vocab != cfg.vocab_size:
         pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
         logits = torch.where(pad_mask, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)  # (B,C)
-    lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        # DTensor's gather over a vocab split over "model" fails to reduce
+        # its masked partial result; the label's logit is also the sum of
+        # the row with every other entry zeroed, exactly
+        hit = torch.arange(logits.shape[-1], device=logits.device) == labels[..., None]
+        lab = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        lab = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return ((lse - lab) * mask).sum()
+
+
+def remat(fn, *args, **kwargs):
+    """``torch.utils.checkpoint(fn, *args, **kwargs)`` whose recompute sees
+    the caller's active mesh and sharding profile.  Autograd runs a CUDA
+    backward on its own device thread, where the caller's ``contextvars``
+    are not set, so the recompute would apply no constraint and read the
+    default profile; ``fn`` runs under a copy of the forward's context
+    both times."""
+    ctx = copy_context()
+    return checkpoint(lambda *a: ctx.copy().run(fn, *a), *args, **kwargs)
 
 
 def chunked_softmax_xent(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
@@ -214,9 +259,165 @@ def chunked_softmax_xent(cfg: ModelConfig, emb: Dict[str, torch.Tensor],
             else mask.to(torch.float32))
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, C):
-        total = total + checkpoint(_xent_chunk, cfg, h[:, i:i + C], wf, labels[:, i:i + C],
-                                   mask[:, i:i + C], use_reentrant=False)
+        total = total + remat(_xent_chunk, cfg, h[:, i:i + C], wf, labels[:, i:i + C],
+                              mask[:, i:i + C], use_reentrant=False)
     return total / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# activation constraints over the active mesh
+# ---------------------------------------------------------------------------
+#: the mesh that ``launch.mesh.mesh_context`` made active (None: no mesh) and
+#: the sharding profile, "tp" or "fsdp"
+_MESH: ContextVar[Any] = ContextVar("repro_torch_mesh", default=None)
+_PROFILE: ContextVar[str] = ContextVar("repro_torch_profile", default="tp")
+
+
+def set_sharding_profile(profile: str) -> None:
+    """"tp": the model axis shards hidden activation dims (Megatron-style).
+    "fsdp": the model axis is one more data axis; constraints on "model"
+    are no-ops and batch dims may shard over it.  Sets the profile of the
+    current context (``mesh_context`` restores the outer one on exit)."""
+    assert profile in ("tp", "fsdp")
+    _PROFILE.set(profile)
+
+
+def get_sharding_profile() -> str:
+    return _PROFILE.get()
+
+
+def active_mesh():
+    """The ``DeviceMesh`` of the enclosing ``mesh_context``, or None."""
+    return _MESH.get()
+
+
+def is_dtensor(x: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _dp_axes(mesh) -> tuple:
+    names = ["pod", "data"]
+    if _PROFILE.get() == "fsdp":
+        names.append("model")
+    return tuple(a for a in names if a in mesh.mesh_dim_names)
+
+
+def constrain_spec(mesh, shape: Sequence[int],
+                   assignments: Dict[int, str]) -> Optional[Tuple]:
+    """The reference's ``PartitionSpec`` for ``assignments`` on a tensor of
+    ``shape``, as a tuple with one entry a dim (None, an axis name or a
+    tuple of them), or None where it pins nothing.
+
+    ``assignments`` maps dim -> role, role in {"dp", "model"}.  "dp" is all
+    data axes, then fewer (the fallback chain); "model" is dropped under
+    the fsdp profile.  A dim whose size the axes do not divide is skipped,
+    and each axis is used once, in the order of ``assignments``."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    spec = [None] * len(shape)
+    used = set()
+    for dim, role in assignments.items():
+        d = dim % len(shape)
+        if role == "dp":
+            ax = _dp_axes(mesh)
+            candidates = [ax[:k] for k in range(len(ax), 0, -1)]
+        else:
+            if _PROFILE.get() == "fsdp" or role not in sizes:
+                continue
+            candidates = [(role,)]
+        for names in candidates:
+            if not names or any(a in used for a in names):
+                continue
+            size = math.prod(sizes[a] for a in names)
+            if size > 1 and shape[d] % size == 0:
+                spec[d] = names if len(names) > 1 else names[0]
+                used.update(names)
+                break
+    return None if all(s is None for s in spec) else tuple(spec)
+
+
+def spec_placements(spec: Sequence, mesh) -> list:
+    """DTensor placements of a spec on a ``DeviceMesh``: for each mesh
+    dimension ``Shard(d)`` if the spec puts that axis on tensor dim ``d``,
+    else ``Replicate()``.  A tuple entry shards one tensor dimension over
+    several mesh dimensions, in mesh order (the spec's tuples list the data
+    axes in mesh order, major first)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate() for _ in mesh.mesh_dim_names]
+    for d, names in enumerate(spec):
+        for a in (() if names is None else (names,) if isinstance(names, str) else names):
+            out[mesh.mesh_dim_names.index(a)] = Shard(d)
+    return out
+
+
+def constrain_dims(x: torch.Tensor, assignments: Dict[int, str],
+                   free: Sequence[int] = ()) -> torch.Tensor:
+    """Pin activation dims to mesh axes: a DTensor is redistributed to the
+    placements of :func:`constrain_spec` (replicated on every axis the spec
+    leaves out), the eager counterpart of ``with_sharding_constraint``.
+    The dims in ``free`` are left unconstrained, as the reference leaves a
+    ``vmap``ped dim: an axis the spec does not use keeps its split of one
+    of them.  A plain tensor, no active mesh, or a spec that pins nothing
+    returns ``x`` itself."""
+    mesh = _MESH.get()
+    if mesh is None or not is_dtensor(x):
+        return x
+    spec = constrain_spec(mesh, x.shape, assignments)
+    if spec is None:
+        return x
+    want = spec_placements(spec, mesh)
+    if free:
+        free = {d % x.ndim for d in free}
+        want = [q if p.is_replicate() and q.is_shard() and q.dim in free else p
+                for p, q in zip(want, x.placements)]
+    return x if tuple(x.placements) == tuple(want) else x.redistribute(mesh, want)
+
+
+def zero_pad(x: torch.Tensor, pad: Sequence[int]) -> torch.Tensor:
+    """``F.pad(x, pad)`` with zeros.  A DTensor is padded by concatenating
+    zeros instead: DTensor's rule for ``constant_pad_nd`` in torch 2.11
+    returns a spec of one placement on a mesh of two dims, which the next
+    view op refuses.  The values are the same."""
+    if not is_dtensor(x):
+        return F.pad(x, pad)
+    for i in range(len(pad) // 2):
+        d = x.ndim - 1 - i
+        shape = list(x.shape)
+
+        def zeros(n):
+            shape[d] = n
+            return [torch.zeros(shape, dtype=x.dtype, device=x.device)] if n else []
+
+        parts = zeros(pad[2 * i]) + [x] + zeros(pad[2 * i + 1])
+        if len(parts) > 1:
+            x = torch.cat(parts, dim=d)
+    return x
+
+
+def unflatten_last(x: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
+    """``x.unflatten(-1, sizes)``.  A DTensor split along its last dim (a
+    product with a weight the dry-run lays out by its spec) is gathered
+    along it first where the split does not fall on whole rows of
+    ``sizes[0]``: DTensor refuses to regroup such a split."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        d = x.ndim - 1
+        n = math.prod(size for p, size in zip(x.placements, x.device_mesh.shape)
+                      if p.is_shard(d))
+        if sizes[0] % n:
+            x = x.redistribute(x.device_mesh, [Replicate() if p.is_shard(d) else p
+                                               for p in x.placements])
+    return x.unflatten(-1, sizes)
+
+
+def constrain_batch(x: torch.Tensor) -> torch.Tensor:
+    """Pin the leading batch dim to the data axes (block-boundary anchor)."""
+    return constrain_dims(x, {0: "dp"})
+
+
+def constrain_hidden(x: torch.Tensor, model_dim: int = -1) -> torch.Tensor:
+    """Batch on data axes + a hidden (ffn/heads/vocab) dim on "model"."""
+    return constrain_dims(x, {0: "dp", model_dim: "model"})
 
 
 def act_fn(name: str):

@@ -38,6 +38,7 @@ reference's ``dots_with_no_batch_dims_saveable``), else saving nothing
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
@@ -47,12 +48,12 @@ import torch
 from . import attention as attn
 from . import mlp as mlpm
 from . import ssm
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
-from .common import (apply_norm, chunked_softmax_xent, dense_init, embed_tokens,
-                     embedding_init, init_device, lm_head_logits, merge_visual, norm_init,
-                     positions_for)
+from .common import (active_mesh, apply_norm, chunked_softmax_xent, constrain_batch,
+                     constrain_spec, dense_init, embed_tokens, embedding_init, init_device,
+                     is_dtensor, lm_head_logits, merge_visual, norm_init, positions_for,
+                     remat, spec_placements)
 from .config import ModelConfig, check_supported
 
 Tree = Dict[str, Any]
@@ -122,10 +123,16 @@ def _stacked(make: Callable[[], Tree], count: int) -> Tree:
 
 
 def _unstack(tree: Tree, count: int) -> List[Tree]:
-    """The ``count`` layers of a stacked tree, as views (``unbind``)."""
+    """The ``count`` layers of a stacked tree, as views (``unbind``).  A
+    DTensor split along the layer axis (as the dry-run lays some stacks out)
+    is gathered along it first: DTensor cannot unbind a split dim."""
     if isinstance(tree, dict):
         per = {k: _unstack(v, count) for k, v in tree.items()}
         return [{k: v[i] for k, v in per.items()} for i in range(count)]
+    if is_dtensor(tree) and any(p.is_shard(0) for p in tree.placements):
+        from torch.distributed.tensor import Replicate
+        tree = tree.redistribute(tree.device_mesh, [Replicate() if p.is_shard(0) else p
+                                                    for p in tree.placements])
     return list(tree.unbind(0))
 
 
@@ -210,6 +217,10 @@ def _attn_layer(cfg: ModelConfig, ffn: str, lp: Tree, x: torch.Tensor, mix,
         f, aux = _apply_ffn(cfg, ffn, lp["ffn"], h, serve)
         return x + mix(h) + f, aux
     x = x + mix(h)
+    if not serve:
+        # the residual batch-only at the sum, as the reference's training
+        # block (its serving blocks leave it to propagation)
+        x = constrain_batch(x)
     f, aux = _apply_ffn(cfg, ffn, lp["ffn"], apply_norm(cfg, lp["ln2"], x), serve)
     return x + f, aux
 
@@ -263,17 +274,22 @@ def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 def backbone(cfg: ModelConfig, params: Tree, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens -> final hidden states (B,S,D) and the layers' summed aux loss."""
-    x = _embed(cfg, params, batch["tokens"], batch)
+    # the reference pins the batch after the embedding, before RWKV's ln0:
+    # a row-wise norm, the same placement either way
+    x = constrain_batch(_embed(cfg, params, batch["tokens"], batch))
     positions = positions_for(cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = dict(use_reentrant=False)
+    remat_kw = dict(use_reentrant=False)
     if cfg.remat_policy == "dots":
-        remat["context_fn"] = partial(create_selective_checkpoint_contexts, _dots_policy)
-    for _, _, kind, ffn, lp in _walk(cfg, params):
+        remat_kw["context_fn"] = partial(create_selective_checkpoint_contexts, _dots_policy)
+    groups = layer_groups(cfg)
+    for gi, _, kind, ffn, lp in _walk(cfg, params):
         if cfg.remat and torch.is_grad_enabled():
-            x, aux = checkpoint(_apply_layer, cfg, kind, ffn, lp, x, positions, **remat)
+            x, aux = remat(_apply_layer, cfg, kind, ffn, lp, x, positions, **remat_kw)
         else:
             x, aux = _apply_layer(cfg, kind, ffn, lp, x, positions)
+        if groups[gi].kind != "shared_attn":
+            x = constrain_batch(x)  # as the reference pins each stacked layer's output
         if aux is not None:
             aux_total = aux_total + aux
     x = apply_norm(cfg, params["final_norm"], x)
@@ -310,15 +326,31 @@ def _cache_one(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: torch.device) -> List[Tree]:
-    """One stacked cache tree per layer group, each leaf (count, ...)."""
+               device: torch.device, mesh=None) -> List[Tree]:
+    """One stacked cache tree per layer group, each leaf (count, ...).
+    With a ``mesh`` the leaves are DTensors, the batch dim over the data
+    axes (its ``constrain_batch`` placement), zeros made shard by shard."""
     dt = cfg.compute_tdtype()
     out = []
     for g in layer_groups(cfg):
-        one = _cache_one(cfg, g.kind, batch, max_len, dt, device)
-        out.append({k: torch.zeros((g.count, *v.shape), dtype=v.dtype, device=device)
+        one = _cache_one(cfg, g.kind, batch, max_len, dt, torch.device("meta"))
+        out.append({k: _zeros((g.count, *v.shape), v.dtype, device, mesh)
                     for k, v in one.items()})
     return out
+
+
+def _zeros(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device,
+           mesh) -> torch.Tensor:
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    spec = constrain_spec(mesh, shape, {1: "dp"}) or (None,) * len(shape)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    local = [n // math.prod(sizes[a] for a in ((s,) if isinstance(s, str) else s or ()))
+             for n, s in zip(shape, spec)]
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh,
+                              spec_placements(spec, mesh), run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def _write(cache: Tree, state: Tree) -> None:
@@ -377,7 +409,8 @@ def prefill(cfg: ModelConfig, params: Tree, batch: Dict,
     tokens = batch["tokens"]
     x = _embed(cfg, params, tokens, batch)
     positions = positions_for(cfg, batch)
-    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    mesh = active_mesh() if is_dtensor(tokens) else None
+    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device, mesh)
     for gi, i, kind, ffn, lp in _walk(cfg, params):
         x = _prefill_layer(cfg, kind, ffn, lp, x, positions, _index(cache[gi], i))
     return _head(cfg, params, x[:, -1]), cache

@@ -21,12 +21,13 @@ reference does: ``wg`` is made and never read, so its gradient is zero.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .common import act_fn, dense_init
+from .common import (_dp_axes, act_fn, constrain_dims, constrain_hidden, dense_init,
+                     get_sharding_profile, is_dtensor)
 from .config import ModelConfig
 
 Tensors = Dict[str, torch.Tensor]
@@ -50,6 +51,7 @@ def mlp_apply(cfg: ModelConfig, p: Tensors, x: torch.Tensor) -> torch.Tensor:
     h = act_fn(cfg.mlp_act)(x @ p["wi"].to(x.dtype))
     if cfg.mlp_act != "gelu_mlp":  # gated; gelu_mlp is the plain 2-layer MLP (Whisper)
         h = h * (x @ p["wg"].to(x.dtype))
+    h = constrain_hidden(h)  # ffn dim on "model": Megatron column-parallel
     return h @ p["wo"].to(x.dtype)
 
 
@@ -122,10 +124,32 @@ def _dispatch(x: torch.Tensor, slot: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def _experts(cfg: ModelConfig, p: Tensors, h: torch.Tensor) -> torch.Tensor:
-    """The experts' gated MLPs over their buffers: (E, n, D) -> (E, n, D)."""
+    """The experts' gated MLPs over their buffers: (E, n, D) -> (E, n, D).
+    The reference's expert-parallel constraints sit on the same three
+    tensors: its (E, C, D) buffers are these with the groups' slots folded
+    into n.  Its groups are a ``vmap``ped dim, which its constraints leave
+    free, so n keeps its split over the data axes here."""
     act = act_fn(cfg.mlp_act)
-    wi, wg, wo = (p[k].to(h.dtype) for k in ("wi", "wg", "wo"))
-    return torch.bmm(act(torch.bmm(h, wi)) * torch.bmm(h, wg), wo)
+    wi, wg, wo = (_whole_but_experts(p[k].to(h.dtype)) for k in ("wi", "wg", "wo"))
+    h = constrain_dims(h, {0: "model"}, free=(1,))  # EP over "model"
+    f = constrain_dims(act(torch.bmm(h, wi)) * torch.bmm(h, wg),
+                       {0: "model", 2: "model"}, free=(1,))  # EP, else TP in the expert
+    return constrain_dims(torch.bmm(f, wo), {0: "model"}, free=(1,))
+
+
+def _whole_but_experts(w: torch.Tensor) -> torch.Tensor:
+    """An expert weight (E, ., .) that the dry-run lays out by its spec
+    (E over "model", a feature dim over the data axes) gathered over all
+    but its experts' split, as FSDP gathers a weight before its product:
+    left split, DTensor would move the buffers' slots off the data axes
+    onto the contracted dim and all-reduce the (E, n, D) products.  A
+    weight that is whole or split by experts alone (the trainer's, the
+    server's) is returned as it is."""
+    if not is_dtensor(w) or all(q.is_replicate() or q.is_shard(0) for q in w.placements):
+        return w
+    from torch.distributed.tensor import Replicate
+    return w.redistribute(w.device_mesh, [q if q.is_shard(0) else Replicate()
+                                          for q in w.placements])
 
 
 def _combine(out: torch.Tensor, slot: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -140,10 +164,13 @@ def _combine(out: torch.Tensor, slot: torch.Tensor, w: torch.Tensor) -> torch.Te
     return torch.bmm(w.to(out.dtype).reshape(N, 1, K), g.view(N, K, -1)).view(N, -1)
 
 
-def _moe_capacity(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
-                  cf: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_capacity(cfg: ModelConfig, p: Tensors, x: torch.Tensor, cf: float,
+                  experts: Optional[Callable] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE over G token groups of T tokens, each with its own capacity C.
-    x: (G, T, D) -> (y (G, T, D), aux (G,))."""
+    x: (G, T, D) -> (y (G, T, D), aux (G,)).  ``experts(buffers, slot, w)``
+    maps the (E, G * C, D) buffers, each assignment's row and its weight to
+    y (G * T, D) (default: :func:`_experts` over ``p``, then
+    :func:`_combine`)."""
     m = cfg.moe
     G, T, D = x.shape
     E = m.num_experts
@@ -154,9 +181,92 @@ def _moe_capacity(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
     # rows of the (E, G, C) buffers; a dropped assignment points past the end
     slot = torch.where(keep, (gate_i * G + group) * C + pos, E * G * C).reshape(G * T, -1)
     expert_in = _dispatch(x.reshape(G * T, D), slot, E * G * C).view(E, G * C, D)
-    out = _experts(cfg, p, expert_in).view(E * G * C, D)
-    y = _combine(out, slot, (gate_w * keep).reshape(G * T, -1))
+    w = (gate_w * keep).reshape(G * T, -1)
+    if experts is not None:
+        return experts(expert_in, slot, w).view(G, T, D), aux
+    y = _combine(_experts(cfg, p, expert_in).view(E * G * C, D), slot, w)
     return y.view(G, T, D), aux
+
+
+def _capacity_on_shards(cfg: ModelConfig, p: Tensors, x, cf: float):
+    """:func:`_moe_capacity` over a mesh: the routing, the slots, the
+    dispatch and the combine read the data, which a DTensor cannot carry,
+    so they run on each rank's token groups (the groups keep their split
+    over the data axes, which each group's own capacity allows); the
+    experts run on the buffers as a DTensor (slots split like the groups),
+    under the reference's expert-parallel constraints (:func:`_experts`).
+
+    Each rank combines what it holds of the experts' outputs along the
+    other axes (:func:`_combine_local`): its own experts under EP, or its
+    partial sum over a split hidden dim; the ranks' partial y then meet in
+    one all-reduce of (G, T, D), as GSPMD reduces the reference's combine
+    einsum, where gathering the outputs would move (E, G * C, D), top_k x
+    capacity factor as many rows.  The router's gradient is a partial sum
+    over the data axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    dp = _dp_axes(mesh)
+    # the data axes that x's groups are already split over: y is split the
+    # same way, so that it can be viewed back as (B, S, D)
+    split, n = [], 1
+    for a, size, q in zip(mesh.mesh_dim_names, mesh.shape, x.placements):
+        split.append(a in dp and size > 1 and q.is_shard(0) and x.shape[0] % (n * size) == 0)
+        n *= size if split[-1] else 1
+
+    def pl(shard, other):
+        return [shard if s else other for s in split]
+
+    router = p["router"].redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=pl(Partial(), Replicate()))
+
+    def experts(buffers, slot, w):
+        d = DTensor.from_local(buffers, mesh, pl(Shard(1), Replicate()), run_check=False)
+        return _combine_local(_experts(cfg, p, d), split, slot, w)
+
+    y, aux = _moe_capacity(cfg, {"router": router},
+                           x.redistribute(mesh, pl(Shard(0), Replicate())).to_local(), cf,
+                           experts)
+    return tuple(DTensor.from_local(t, mesh, pl(Shard(0), Replicate()), run_check=False)
+                 for t in (y, aux))
+
+
+def _combine_local(out, split: List[bool], slot: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The combine of :func:`_capacity_on_shards` on this rank: ``out`` the
+    experts' (E, R, D) outputs as a DTensor (R the rank's slots where
+    ``split`` marks a data axis), ``slot`` and ``w`` this rank's (N, K) rows
+    and weights -> its y (N, D), whole on every rank of the other axes.
+
+    Along those axes each rank keeps its experts (EP: E split) or its
+    partial sum (a split hidden dim), or gathers any other split; it
+    combines the assignments of its experts alone, and one all-reduce over
+    those axes sums the partial y.  The weights' gradient is then partial
+    over the same axes, and is all-reduced in the backward."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = out.device_mesh
+    E, R, D = out.shape
+    want = [Shard(1) if s else q if q.is_partial() or q == Shard(0) else Replicate()
+            for s, q in zip(split, out.placements)]
+    local = out.redistribute(mesh, want).to_local(
+        grad_placements=[Replicate() if q.is_partial() else q for q in want])
+    reduced = [not s and not q.is_replicate() for s, q in zip(split, want)]
+    if not any(reduced):
+        return _combine(local.reshape(-1, D), slot, w)
+    lo, n = 0, E  # this rank's run of experts: Shard(0) splits E in mesh order
+    for i, q in enumerate(want):
+        if q == Shard(0):
+            n //= mesh.shape[i]
+            lo += mesh.get_coordinate()[i] * n
+    keep = [Shard(0) if s else Replicate() for s in split]
+    w = DTensor.from_local(w, mesh, keep, run_check=False).to_local(
+        grad_placements=[Partial() if r else q for r, q in zip(reduced, keep)])
+    if n < E:  # masked after the reduction, so that only its own experts add to it
+        w = w * ((slot >= lo * R) & (slot < (lo + n) * R))
+        slot = (slot - lo * R).clamp_min(0)
+    y = _combine(local.reshape(-1, D), slot, w)
+    return DTensor.from_local(y, mesh, [Partial() if r else q for r, q in zip(reduced, keep)],
+                              run_check=False).redistribute(mesh, keep).to_local()
 
 
 def _moe_dropless(cfg: ModelConfig, p: Tensors,
@@ -165,8 +275,18 @@ def _moe_dropless(cfg: ModelConfig, p: Tensors,
     expert (stable, as ``jnp.argsort``), each expert's run of rows through
     its MLP (the reference's ``ragged_dot``), the weighted outputs added
     back.  x: (T, D) -> (y (T, D), aux scalar)."""
-    m = cfg.moe
     gate_w, gate_i, aux = _route(cfg, p, x)
+    if is_dtensor(x):
+        return _dropless_on_shards(cfg, p, x, gate_w, gate_i), aux
+    return _dropless_dispatch(cfg, p, x, gate_w, gate_i), aux
+
+
+def _dropless_dispatch(cfg: ModelConfig, p: Tensors, x: torch.Tensor, gate_w: torch.Tensor,
+                       gate_i: torch.Tensor) -> torch.Tensor:
+    """The sort, the grouped products and the weighted sum of
+    :func:`_moe_dropless` over the rows of ``x``: each token's output reads
+    only its own row and its own assignments."""
+    m = cfg.moe
     flat_e = gate_i.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     tok = order // m.top_k
@@ -184,7 +304,52 @@ def _moe_dropless(cfg: ModelConfig, p: Tensors,
     out = torch.cat([(act(xe @ wi[e]) * (xe @ wg[e])) @ wo[e]
                      for e, xe in enumerate(xs.split(sizes))])
     w_sorted = gate_w.reshape(-1)[order].to(x.dtype)
-    return torch.zeros_like(x).index_add_(0, tok, out * w_sorted[:, None]), aux
+    return torch.zeros_like(x).index_add_(0, tok, out * w_sorted[:, None])
+
+
+def _dropless_on_shards(cfg: ModelConfig, p: Tensors, x, gate_w, gate_i):
+    """:func:`_dropless_dispatch` over a mesh, on local shards: the routing
+    reads the data (its sizes, its sort), which a DTensor cannot carry.
+
+    The tokens keep their split over the data axes, which every token's
+    output allows.  Under the tp profile the experts' hidden dim F is split
+    over "model" where it divides (the reference's constraint of the grouped
+    products' hidden, ``{1: "model"}``), so each rank's output is a partial
+    sum over its slice of F.  The expert weights' gradients are partial
+    sums over the data axes; the inputs' over the F split."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    dp = _dp_axes(mesh)
+    T, Fe = x.shape[0], cfg.moe.d_expert
+    rows, ff, n_dp, n_ff = [], [], 1, 1
+    for a, n, q in zip(mesh.mesh_dim_names, mesh.shape, x.placements):
+        split_rows = a in dp and n > 1 and q.is_shard(0) and T % (n_dp * n) == 0
+        split_f = (not split_rows and a == "model" and get_sharding_profile() == "tp"
+                   and n > 1 and Fe % (n_ff * n) == 0)
+        n_dp *= n if split_rows else 1
+        n_ff *= n if split_f else 1
+        rows.append(split_rows)
+        ff.append(split_f)
+
+    def pl(shard, other):
+        return [s if r else f if g else Replicate()
+                for r, g, s, f in zip(rows, ff, shard, other)]
+
+    def tokens(t):  # rows split on the data axes, partial grads on the F split
+        want = pl([Shard(0)] * mesh.ndim, [Replicate()] * mesh.ndim)
+        grad = pl([Shard(0)] * mesh.ndim, [Partial()] * mesh.ndim)
+        return t.redistribute(mesh, want).to_local(grad_placements=grad)
+
+    def weight(t, fdim):  # whole on the data axes, split on the F axes
+        want = pl([Replicate()] * mesh.ndim, [Shard(fdim)] * mesh.ndim)
+        grad = pl([Partial()] * mesh.ndim, [Shard(fdim)] * mesh.ndim)
+        return t.redistribute(mesh, want).to_local(grad_placements=grad)
+
+    local_p = {"wi": weight(p["wi"], 2), "wg": weight(p["wg"], 2), "wo": weight(p["wo"], 1)}
+    y = _dropless_dispatch(cfg, local_p, tokens(x), tokens(gate_w), tokens(gate_i))
+    return DTensor.from_local(y, mesh, pl([Shard(0)] * mesh.ndim, [Partial()] * mesh.ndim),
+                              run_check=False)
 
 
 def moe_apply(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
@@ -209,7 +374,8 @@ def moe_apply(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
         if T % gt:
             gt = math.gcd(T, gt)
         cf = m.serve_capacity_factor if serve else m.capacity_factor
-        y, auxs = _moe_capacity(cfg, p, x.reshape(T // gt, gt, D), cf)
+        moe = _capacity_on_shards if is_dtensor(x) else _moe_capacity
+        y, auxs = moe(cfg, p, x.reshape(T // gt, gt, D), cf)
         aux = auxs.mean()
     y = y.reshape(B, S, D)
     if m.num_shared:

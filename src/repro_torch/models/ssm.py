@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from .common import dense_init, init_device
+from .common import constrain_dims, dense_init, init_device, unflatten_last, zero_pad
 from .config import ModelConfig
 
 Tensors = Dict[str, torch.Tensor]
@@ -38,7 +38,7 @@ def _randn(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> tor
 def _shift(x: torch.Tensor, x_prev_last: Optional[torch.Tensor]) -> torch.Tensor:
     """x moved one position later along S; position 0 is ``x_prev_last``
     (zeros when None)."""
-    shift = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    shift = zero_pad(x, (0, 0, 1, 0))[:, :-1]
     if x_prev_last is not None:
         shift[:, 0] = x_prev_last
     return shift
@@ -98,11 +98,12 @@ def _mamba2_forward(cfg: ModelConfig, p: Tensors, x: torch.Tensor):
     z, xbc, dt_raw, (Din, H, G, N) = _mamba2_split(cfg, proj)
     # causal depthwise conv over (x, B, C), summed in the reference's order
     w = p["conv_w"].to(x.dtype)  # (d_conv, Din+2GN)
-    pad = F.pad(xbc, (0, 0, mc.d_conv - 1, 0))
+    pad = zero_pad(xbc, (0, 0, mc.d_conv - 1, 0))
     conv = sum(w[i] * pad[:, i:i + S] for i in range(mc.d_conv))
     conv = F.silu(conv.float()).to(x.dtype)
     xs, Bm, Cm = torch.split(conv, [Din, G * N, G * N], dim=-1)
-    xs = xs.reshape(B, S, H, mc.headdim)   # strided views of conv, no copies
+    xs = constrain_dims(xs.reshape(B, S, H, mc.headdim),  # strided views of conv, no copies
+                        {0: "dp", 2: "model"})
     Bm = Bm.reshape(B, S, G, N)
     Cm = Cm.reshape(B, S, G, N)
     dtv = F.softplus(dt_raw.float() + p["dt_bias"])
@@ -200,7 +201,7 @@ def _rwkv6_mix(p: Tensors, x: torch.Tensor, x_prev: torch.Tensor):
     sx = x_prev - x
     base = x + sx * p["mix_x"][0].to(dt)
     lora = torch.tanh((base @ p["mix_w1"].to(dt)).float()).to(dt)
-    lora = lora.reshape(*lora.shape[:-1], 5, -1)
+    lora = unflatten_last(lora, (5, -1))
     adj = torch.einsum("bsnk,nkd->bsnd", lora, p["mix_w2"].to(dt))
     return [x + sx * (p["mix_x"][i].to(dt) + adj[:, :, i]) for i in range(5)]
 
@@ -210,9 +211,9 @@ def _rwkv6_rkvwg(cfg: ModelConfig, p: Tensors, x: torch.Tensor, x_prev: torch.Te
     H = cfg.d_model // rc.head_dim
     dt = x.dtype
     xr, xk, xv, xw, xg = _rwkv6_mix(p, x, x_prev)
-    r = xr @ p["wr"].to(dt)
-    k = xk @ p["wk"].to(dt)
-    v = xv @ p["wv"].to(dt)
+    r = constrain_dims(xr @ p["wr"].to(dt), {0: "dp", 2: "model"})
+    k = constrain_dims(xk @ p["wk"].to(dt), {0: "dp", 2: "model"})
+    v = constrain_dims(xv @ p["wv"].to(dt), {0: "dp", 2: "model"})
     g = xg @ p["wg"].to(dt)
     dw = torch.tanh((xw @ p["w1"].to(dt)).float()).to(dt) @ p["w2"].to(dt)
     # per-channel log decay, always negative: w = -exp(w0 + dw)
@@ -249,7 +250,8 @@ def rwkv6_channel_mix(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
     sx = _shift(x, x_prev_last) - x
     xk = x + sx * p["cm_mix"][0].to(dt)
     xr = x + sx * p["cm_mix"][1].to(dt)
-    kk = torch.relu((xk @ p["cm_k"].to(dt)).float()).square().to(dt)
+    kk = constrain_dims(xk @ p["cm_k"].to(dt), {0: "dp", 2: "model"})
+    kk = torch.relu(kk.float()).square().to(dt)
     vv = kk @ p["cm_v"].to(dt)
     rr = torch.sigmoid((xr @ p["cm_r"].to(dt)).float())
     return rr.to(dt) * vv, x[:, -1]

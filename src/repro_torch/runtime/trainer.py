@@ -28,8 +28,17 @@ package's ``runtime/trainer.py``.
 * restore copies into the buffers of a freshly made state, so the state is
   never held twice on the card.
 
-Distribution is not ported (ROADMAP A6): the trainer runs on one
-``device`` (the reference's ``mesh`` argument), and the step is eager
+The trainer runs over a ``DeviceMesh`` (the reference's ``mesh``
+argument) or, given a device or None, on one device without a mesh.  Over a
+mesh ``fit`` runs under ``mesh_context`` with the caller's sharding profile
+(``set_sharding_profile``; "tp" unless the caller sets another, as in the
+reference, whose launcher sets none); the state
+is replicated over the mesh, as the reference's jit without
+``in_shardings`` keeps it; each rank loads the same global batch (the
+loader is a pure function of (seed, epoch, step)) and keeps its rows over
+the data axes; the activation constraints place the rest.  Checkpoints are
+mesh-agnostic (full arrays, named leaves: rank 0 writes them), so ``fit``
+resumes on a mesh of another shape, or without one.  The step is eager
 PyTorch (``make_train_step``), where the reference jits and donates.
 """
 
@@ -44,8 +53,10 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager, CheckpointPolicy
 from repro_torch.data.pipeline import TokenBatchLoader
+from repro_torch.launch.mesh import mesh_context, replicate, shard_batch
 from repro_torch.launch.steps import make_train_state, make_train_step
 from repro_torch.models.api import Model
+from repro_torch.models.common import get_sharding_profile, is_dtensor
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.tree import tree_map
 
@@ -84,13 +95,23 @@ class StepEvent:
 class Trainer:
     def __init__(self, model: Model, opt_cfg: AdamWConfig,
                  loader: TokenBatchLoader, ckpt: Optional[CheckpointManager],
-                 device: Any, tcfg: TrainerConfig = TrainerConfig(),
+                 mesh: Any, tcfg: TrainerConfig = TrainerConfig(),
                  batch_extras: Optional[Callable[[Dict], Dict]] = None):
+        """``mesh``: a ``DeviceMesh``, or a device (or None: the CPU) to
+        train on without a mesh."""
+        from torch.distributed.device_mesh import DeviceMesh
+
         self.model = model
         self.opt_cfg = opt_cfg
         self.loader = loader
         self.ckpt = ckpt
-        self.device = torch.device(device)
+        self.mesh = mesh if isinstance(mesh, DeviceMesh) else None
+        if self.mesh is None:
+            self.device = torch.device("cpu" if mesh is None else mesh)
+        elif self.mesh.device_type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            self.device = torch.device(self.mesh.device_type)
         self.tcfg = tcfg
         self.batch_extras = batch_extras
         self.events: List[StepEvent] = []
@@ -120,12 +141,16 @@ class Trainer:
         start_epoch, start_step = 0, 0
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         state = make_train_state(self.model, self.opt_cfg, gen)
+        if self.mesh is not None:
+            state = replicate(state, self.mesh)
         if self.ckpt is not None and self.tcfg.restore:
             t0 = time.perf_counter()
             out = self.ckpt.restore_latest(like=state)
             if out is not None:
                 ckpt_step, tree, extra = out
-                tree_map(lambda dst, src: dst.copy_(src), state, tree)
+                # every rank reads the whole tree into its replica
+                tree_map(lambda dst, src: (dst.to_local() if is_dtensor(dst) else dst)
+                         .copy_(src), state, tree)
                 del tree
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -149,6 +174,12 @@ class Trainer:
 
     # -- the loop ------------------------------------------------------------
     def fit(self) -> Dict[str, Any]:
+        if self.mesh is None:
+            return self._fit()
+        with mesh_context(self.mesh, get_sharding_profile()):
+            return self._fit()
+
+    def _fit(self) -> Dict[str, Any]:
         if self.ckpt is not None and self.tcfg.retention is not None:
             self.ckpt.policy = self.tcfg.retention
         step_fn = make_train_step(self.model, self.opt_cfg)
@@ -164,8 +195,12 @@ class Trainer:
                 if self.batch_extras is not None:
                     batch = self.batch_extras(batch)
                 batch = self._to_device(batch)
+                if self.mesh is not None:
+                    batch = shard_batch(batch, self.mesh)
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
+                metrics = {k: v.full_tensor() if is_dtensor(v) else v
+                           for k, v in metrics.items()}
                 loss = float(metrics["loss"])
                 dt = time.perf_counter() - t0
                 in_flight = self.ckpt is not None and self.ckpt.save_in_flight()

@@ -257,3 +257,231 @@ def test_cli_writes_reports_and_fails_loudly(tmp_path):
     res = _cli("--arch", "zamba2-1.2b", "--shape", "no_such_shape", tmp=tmp_path)
     assert res.returncode == 1
     assert "1 FAILURES" in res.stdout and "no_such_shape" in res.stdout
+
+
+def test_cli_counts_collectives(tmp_path):
+    """A decode cell gets the mesh trace: the report's collective fields
+    and the roofline's collective term are filled, and the line says so."""
+    res = _cli("--arch", "tinyllama-1.1b", "--shape", "decode_32k", tmp=tmp_path)
+    assert res.returncode == 0, res.stdout + res.stderr
+    rep = json.loads((tmp_path / "tinyllama_1_1b__decode_32k__16x16.json").read_text())
+    assert rep["hlo"]["collective_count"] > 0 and rep["roofline"]["collective_s"] > 0
+    assert rep["mesh_trace_s"] > 0 and "coll/dev=" in res.stdout
+
+
+def test_prefill_cells_state_why_collectives_are_null():
+    """The CLI traces train and decode cells over a mesh; a prefill cell's
+    report keeps null collective fields and says why."""
+    from repro_torch.launch.dryrun import MESH_TRACED, PREFILL_REASON
+
+    cell = trace_cell(make_cell("tinyllama_1_1b", ShapeSpec("prefill", 64, 4, "prefill"),
+                                smoke=True))
+    report = plan(cell, make_production_mesh())
+    assert report["hlo"]["collective_bytes"] is None and report["mesh_trace_s"] is None
+    assert report["hlo"]["collective_reason"] == PREFILL_REASON
+    assert MESH_TRACED == ("train", "decode")
+
+
+# ---------------------------------------------------------------------------
+# collectives counted over a fake mesh (launch.dryrun.trace_mesh)
+# ---------------------------------------------------------------------------
+def _on(shape, dmesh, placements):
+    """A meta DTensor of global ``shape``: rank 0's shard."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    local = list(shape)
+    for n, p in zip(dmesh.shape, placements):
+        if isinstance(p, Shard):
+            local[p.dim] //= n
+    return DTensor.from_local(torch.empty(local, device="meta"), dmesh, placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+@pytest.fixture
+def fake(request):
+    """``fake_mesh`` of the given axes; its group destroyed after the test."""
+    from repro_torch.launch.dryrun import fake_mesh
+    from repro_torch.launch.mesh import AbstractMesh
+
+    names = ("data", "model") if len(request.param) == 2 else ("pod", "data", "model")
+    try:
+        yield fake_mesh(AbstractMesh(names, request.param))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("fake", [(1, 1)], indirect=True)
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_one_device_mesh_counts_no_collectives(fake, kind):
+    from repro_torch.launch.dryrun import trace_mesh
+
+    cell = trace_cell(make_cell("tinyllama_1_1b", ShapeSpec(kind, 64, 4, kind), smoke=True))
+    trace_mesh(cell, fake)
+    by_kind, count, _ = cell.collectives["1x1"]
+    assert count == 0 and set(by_kind.values()) == {0.0}
+    report = plan(cell, fake)
+    assert report["hlo"]["collective_bytes"] == 0.0 and report["hlo"]["collective_count"] == 0
+    assert report["roofline"]["collective_s"] == 0.0
+
+
+@pytest.mark.parametrize("fake", [(1, 16)], indirect=True)
+def test_tp_mlp_is_one_all_reduce(fake):
+    """Megatron's MLP under tp on (1,16): the ffn dim split over "model" in
+    both products, one all-reduce of the (B, S, D) output, nothing else."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.analysis.cost import trace_collectives
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import mlp
+
+    cfg = get_config("tinyllama_1_1b", smoke=True)
+    B, S, D, F = 4, 64, cfg.d_model, cfg.d_ff
+    R = Replicate()
+    p = {"wi": _on((D, F), fake, [R, Shard(1)]), "wg": _on((D, F), fake, [R, Shard(1)]),
+         "wo": _on((F, D), fake, [R, Shard(0)])}
+    x = _on((B, S, D), fake, [R, R])
+    with mesh_context(fake, "tp"):
+        y, by_kind, count = trace_collectives(
+            lambda: mlp.mlp_apply(cfg, p, x).redistribute(fake, [R, R]))
+    assert count == 1 and by_kind["all-reduce"] == B * S * D * 4
+    assert sum(by_kind.values()) == by_kind["all-reduce"] and tuple(y.shape) == (B, S, D)
+
+
+@pytest.mark.parametrize("fake", [(16, 1)], indirect=True)
+def test_fsdp_param_all_gather(fake):
+    """An fsdp param, (D, F) split over "data" on (16,1), gathered whole:
+    one all-gather whose result is the whole param, D * F * 4 bytes."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.analysis.cost import trace_collectives
+    from repro_torch.launch.mesh import mesh_context
+
+    D, F = 2048, 5632
+    w = _on((D, F), fake, [Shard(0), Replicate()])
+    with mesh_context(fake, "fsdp"):
+        full, by_kind, count = trace_collectives(
+            lambda: w.redistribute(fake, [Replicate(), Replicate()]))
+    assert count == 1 and by_kind["all-gather"] == D * F * 4
+    assert sum(by_kind.values()) == D * F * 4 and tuple(full.to_local().shape) == (D, F)
+
+
+@pytest.mark.parametrize("fake", [(16, 1)], indirect=True)
+def test_all_to_all_counted_as_one(fake):
+    """A shard moved from dim 0 to dim 1 over 16 ranks is one all-to-all of
+    its own result bytes (16 x 2 floats), not the all-gather and chunk that
+    DTensor falls back to on a CPU mesh outside the trace."""
+    from torch.distributed.tensor import Replicate, Shard, placement_types
+
+    from repro_torch.analysis.cost import trace_collectives
+
+    fallback = placement_types.shard_dim_alltoall
+    x = _on((16, 32), fake, [Shard(0), Replicate()])
+    y, by_kind, count = trace_collectives(lambda: x.redistribute(fake, [Shard(1), Replicate()]))
+    assert count == 1 and by_kind["all-to-all"] == 16 * 2 * 4 and by_kind["all-gather"] == 0
+    assert tuple(y.to_local().shape) == (16, 2)
+    assert placement_types.shard_dim_alltoall is fallback  # put back after the trace
+
+
+@pytest.mark.parametrize("fake", [(2, 2)], indirect=True)
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_mesh_trace_adds_only_collectives(fake, kind):
+    """The report's FLOP and byte fields are the meshless trace's over n
+    with or without the mesh trace; the mesh trace fills the collective
+    fields and the roofline's collective term."""
+    from repro_torch.launch.dryrun import trace_mesh
+
+    cell = trace_cell(make_cell("tinyllama_1_1b", ShapeSpec(kind, 64, 4, kind), smoke=True))
+    before = plan(cell, fake)
+    assert before["hlo"]["collective_bytes"] is None
+    trace_mesh(cell, fake)
+    after = plan(cell, fake)
+    for key in ("cost", "memory", "model_flops_per_dev"):
+        assert after[key] == before[key], key
+    for key in ("dot_flops", "dot_bytes", "while_loops", "max_trip"):
+        assert after["hlo"][key] == before["hlo"][key], key
+    assert after["hlo"]["dot_flops"] == cell.cost.dot_flops / 4
+    h = after["hlo"]
+    assert h["collective_count"] > 0 and h["collective_bytes"] == sum(h["collectives"].values())
+    assert set(h["collectives"]) == {"all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                                     "collective-permute"}
+    roof = after["roofline"]
+    assert roof["collective_s"] == h["collective_bytes"] / 450e9
+    assert roof["bound_s"] == max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    assert after["mesh_trace_s"] is not None and before["mesh_trace_s"] is None
+
+
+_REFERENCE_COLLECTIVES = r"""
+import json, sys
+import repro.launch.dryrun as d  # sets XLA_FLAGS (host devices) before JAX starts
+import jax
+from repro.configs import ShapeSpec, get_config
+from repro.launch.mesh import _axis_type_kwargs
+
+arch, kind, profile, S, B, rows, cols, capacity = sys.argv[1:]
+if capacity == "1":  # the MoE's capacity dispatch in place of the smoke config's dropless one
+    from dataclasses import replace
+    d.get_config = lambda a: (lambda c: replace(c, moe=replace(c.moe, dropless=False)))(
+        get_config(a, smoke=True))
+else:
+    d.get_config = lambda a: get_config(a, smoke=True)
+d.SHAPES = {"cell": ShapeSpec("cell", int(S), int(B), kind)}
+shape = (int(rows), int(cols))
+d.make_production_mesh = lambda multi_pod=False: jax.make_mesh(
+    shape, ("data", "model"), devices=jax.devices()[:shape[0] * shape[1]],
+    **_axis_type_kwargs(2))
+lowered, _, _ = d.lower_cell(arch, "cell", False, profile=profile)
+h = d.analyze_hlo(lowered.compile().as_text())
+print(json.dumps({"collectives": h.collectives, "count": h.collective_count}))
+"""
+
+
+@pytest.mark.parametrize("fake", [(2, 2)], indirect=True)
+@pytest.mark.parametrize("kind,profile", [("train", "fsdp"), ("decode", "tp")])
+def test_collectives_beside_reference(fake, kind, profile):
+    """Smoke TinyLlama on (2,2): the port's collectives by kind beside the
+    reference's, summed from its compiled per-device HLO (``pytest -s``
+    prints both: PERF.md's table).  The two partitioners differ (DTensor's
+    per-op rules against GSPMD's), so the bytes are read, not held equal;
+    both issue collectives, under the same five kinds."""
+    _beside_reference(fake, "tinyllama-1.1b", kind, profile)
+
+
+@pytest.mark.parametrize("fake", [(2, 2)], indirect=True)
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v2-236b"])
+def test_capacity_moe_collectives_beside_reference(fake, arch, monkeypatch):
+    """The smoke MoEs with the capacity dispatch (their full configs'),
+    trained under tp on (2,2), so that the experts split over "model":
+    the port's collectives beside the reference's (``pytest -s``)."""
+    from dataclasses import replace
+
+    import repro_torch.launch.dryrun as dry
+
+    monkeypatch.setattr(dry, "get_config", lambda a, smoke: (lambda c: replace(
+        c, moe=replace(c.moe, dropless=False)))(get_config(a, smoke=smoke)))
+    _beside_reference(fake, arch, "train", "tp", capacity=True)
+
+
+def _beside_reference(fake, arch, kind, profile, capacity=False):
+    from repro_torch.analysis.cost import COLLECTIVE_KINDS
+    from repro_torch.launch.dryrun import trace_mesh
+
+    S, B = 64, 8
+    cell = trace_cell(make_cell(arch, ShapeSpec(kind, S, B, kind), smoke=True,
+                                profile=profile))
+    trace_mesh(cell, fake)
+    port, count, _ = cell.collectives["2x2"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", _REFERENCE_COLLECTIVES, arch, kind,
+                          profile, str(S), str(B), "2", "2", str(int(capacity))], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    ref = json.loads(res.stdout.strip().splitlines()[-1])
+    what = f"{arch} smoke{' capacity' if capacity else ''} {kind} {profile} 2x2"
+    for k in COLLECTIVE_KINDS:
+        print(f"[collectives] {what} {k}: port {port[k]:.0f} B, "
+              f"reference {ref['collectives'][k]:.0f} B")
+    print(f"[collectives] {what} total: port {sum(port.values()):.0f}"
+          f" B in {count}, reference {sum(ref['collectives'].values()):.0f} B in {ref['count']}")
+    assert set(ref["collectives"]) == set(COLLECTIVE_KINDS)
+    assert count > 0 and ref["count"] > 0
