@@ -176,7 +176,20 @@ Phases, each of which raises on failure (nothing is caught):
              beside the nvidia-smi line, the file system and its block
              device, the free disk and the direct-open counts.  Times are
              reported, not gated.
-12. report — one ``kernels`` JSON line, the nvidia-smi line, and the result
+12. examples — the port's example drivers: ``examples/quickstart_torch.py``,
+             ``lsm_serving_torch.py`` and ``checkpoint_dr_torch.py`` as
+             subprocesses (each must exit 0, quickstart must print
+             "identical result"; timings printed, not gated); the fp32
+             flash kernel against its plain version at the ~100M llama's
+             shape (B 8, H 12, KV 4, S = T = 256, D 64, causal; 2e-5), timed
+             beside its plain version, SDPA and its bound at the fp32 rate
+             outside the tensor cores; then ``train_100m_torch.py`` in this
+             process at its full ~100M config (fp32, remat off), 100 steps
+             and a restart to 120 on the same temporary work directory,
+             which must restore step 100: flash launches 12 a step, no
+             other kernel, the logged loss falling; parameters, step ms,
+             tok/s, peak memory, checkpoint stall and restore seconds.
+13. report — one ``kernels`` JSON line, the nvidia-smi line, and the result
              line ``{"ok": true, "device": {...}}`` last.  Every phase's
              seconds are printed (``[time]``).
 
@@ -3655,6 +3668,176 @@ def phase_iostore(smi):
     return readings
 
 
+# the example drivers (examples/*_torch.py).  train_100m_torch.py trains
+# its full ~100M config (fp32, remat off: the scalar fp32 flash kernel,
+# once a layer a step); first EXAMPLES_STEPS[0] steps, then the restart to
+# EXAMPLES_STEPS[1] on the same work directory, which must restore the first
+# run's last checkpoint.  Budget: the phase within 75 s.
+EXAMPLES_DIR = ROOT / "examples"
+EXAMPLES_HOST = ("quickstart_torch.py", "lsm_serving_torch.py", "checkpoint_dr_torch.py")
+EXAMPLES_TRAIN = EXAMPLES_DIR / "train_100m_torch.py"
+EXAMPLES_STEPS = (100, 120)
+# fa_fwd_f32 at the ~100M llama's attention: (B, H, KV, S, T, D, causal),
+# checked against the run's config after it
+EXAMPLES_FA = (8, 12, 4, 256, 256, 64, True)
+# one H100 SXM's float32 rate outside the tensor cores, NVIDIA's data sheet:
+# the fp32 kernel's bound (roofline.HW holds the bf16 tensor rate only)
+FP32_PEAK_FLOPS = 67e12
+
+
+def _example_driver(script, *argv):
+    """Run a driver in this process, as ``python script argv...`` would; (its
+    globals, what it printed)."""
+    import io
+    import runpy
+
+    buf, old = io.StringIO(), sys.argv
+    sys.argv = [str(script), *argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            env = runpy.run_path(str(script), run_name="__main__")
+    finally:
+        sys.argv = old
+    return env, buf.getvalue()
+
+
+def _fa_f32_at_the_train_shape(torch, tag):
+    """fa_fwd_f32 against its plain version at EXAMPLES_FA (fp32 tolerance);
+    its CUDA-event time (mean of 20 launches over inputs beyond L2), the
+    plain version's and SDPA's on the same inputs, and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    B, H, KV, S, T, D, causal = EXAMPLES_FA
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    q, k, v = _prefill_inputs(torch, gen, B, H, KV, S, T, D, f32)
+    label = f"flash_attention_fwd float32 B={B} H={H} KV={KV} S={S} T={T} D={D} causal={causal}"
+    err = assert_close(label, fa.flash_attention_fwd(q, k, v, causal),
+                       fa.attention_plain(q, k, v, causal), TOL["float32"])
+    del q, k, v
+    nbytes = 4 * (2 * B * H * S * D + 2 * B * KV * T * D)
+    inputs = copies_beyond_l2(lambda: _prefill_inputs(torch, gen, B, H, KV, S, T, D, f32),
+                              nbytes)
+    pairs = sum(max(0, min(T, i + T - S + 1)) for i in range(S)) if causal else S * T
+    t_bound, by = bound(4 * B * H * D * pairs, nbytes, FP32_PEAK_FLOPS)
+    row = {"shape": f"B={B} H={H} KV={KV} S={S} T={T} D={D} "
+                    f"{'causal' if causal else 'full'} fp32 (train_100m_torch.py)",
+           "max_abs_err": err, "tol": TOL["float32"],
+           "ms": time_ms(torch, lambda q, k, v: fa.flash_attention_fwd(q, k, v, causal), inputs),
+           "plain_ms": time_ms(torch, lambda q, k, v: fa.attention_plain(q, k, v, causal),
+                               inputs, iters=5, warmup=1),
+           "library_ms": time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+               q, k, v, is_causal=causal, enable_gqa=True), inputs),
+           "bound_ms": t_bound, "bound_by": by, "peak_flops": FP32_PEAK_FLOPS}
+    del inputs
+    log(f"{tag} {label}: kernel {row['ms']:.4f} ms ({100 * t_bound / row['ms']:.0f}% of the "
+        f"bound), plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
+        f"{t_bound:.4f} ms ({by}; fp32 {FP32_PEAK_FLOPS / 1e12:g} TFLOP/s, "
+        f"{H100.hbm_bw / 1e12:g} TB/s)")
+    return row
+
+
+def phase_examples(torch, smi):
+    """The port's example drivers: the three host twins as subprocesses (each
+    must exit 0; quickstart must print "identical result"; their timing
+    lines are printed, not gated); fa_fwd_f32 at the ~100M llama's shape;
+    then ``train_100m_torch.py`` in this process at its full config, a run
+    and its restart on one temporary work directory, removed at the end."""
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+
+    tag = "[examples]"
+    t_phase = time.perf_counter()
+    readings = {"host": {}}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for name in EXAMPLES_HOST:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(EXAMPLES_DIR / name)], env=env, cwd=ROOT,
+                             capture_output=True, text=True, timeout=300)
+        s = time.perf_counter() - t0
+        for ln in res.stdout.splitlines():
+            log(f"{tag} {name} | {ln}")
+        log(f"{tag} {name}: rc {res.returncode}, {s:.2f} s [{smi}]")
+        readings["host"][name] = {"rc": res.returncode, "s": s}
+        if res.returncode != 0 or (name == "quickstart_torch.py"
+                                   and "identical result" not in res.stdout):
+            raise AssertionError(f"{tag} {name}: rc {res.returncode}\n{res.stdout[-2000:]}\n"
+                                 f"{res.stderr[-2000:]}")
+    readings["fa_f32"] = _fa_f32_at_the_train_shape(torch, tag)
+
+    work = Path(tempfile.mkdtemp(prefix="examples-", dir=ROOT / "build"))
+    runs = []
+    launches = {}
+    try:
+        for steps in EXAMPLES_STEPS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            g, out_text = _example_driver(EXAMPLES_TRAIN, "--steps", str(steps),
+                                          "--workdir", str(work))
+            s = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            for ln in out_text.splitlines():
+                log(f"{tag} train_100m_torch.py --steps {steps} | {ln}")
+            out, trainer, cfg = g["out"], g["trainer"], g["cfg"]
+            shape = (g["batch"], cfg.n_heads, cfg.n_kv_heads, g["seq"], g["seq"], cfg.hd, True)
+            if shape != EXAMPLES_FA or cfg.remat:
+                raise AssertionError(f"{tag} the driver's attention is {shape} (remat "
+                                     f"{cfg.remat}), the kernel was checked at {EXAMPLES_FA}")
+            taken = len(out["losses"])
+            want = {name: 0 for name in counts}
+            want["flash_attention_fwd"] = cfg.n_layers * taken  # remat off: one a layer
+            if counts != want:
+                raise AssertionError(f"{tag} --steps {steps}: launches {counts}, expected {want} "
+                                     f"({taken} steps)")
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            step_ms = [ev.seconds * 1e3 for ev in trainer.events[1:]]
+            med = statistics.median(step_ms)
+            run = {"steps": steps, "taken": taken, "s": s,
+                   "params_m": sum(t.numel() for t in tree_leaves(out["state"]["params"])) / 1e6,
+                   "step_ms_median": med,
+                   "tok_s": g["batch"] * g["seq"] / (med / 1e3),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "ckpt_wait_s": out["ckpt_wait_s"], "ckpt_saves": out["ckpt_saves"],
+                   "restore_s": trainer.restore_s, "losses": [out["losses"][0], out["losses"][-1]],
+                   "logged": [float(m) for m in
+                              re.findall(r"\[trainer\] step +\d+ loss ([0-9.]+)", out_text)],
+                   "restored": f"[trainer] restored step {EXAMPLES_STEPS[0]} " in out_text,
+                   "launches": counts, "config": cfg.name}
+            runs.append(run)
+            log(f"{tag} train_100m_torch.py --steps {steps}: {run['params_m']:.2f} M params "
+                f"({cfg.name}, {cfg.param_dtype}/{cfg.compute_dtype}, batch {g['batch']} x "
+                f"{g['seq']}), {taken} steps in {s:.2f} s: step {med:.2f} ms (median after the "
+                f"first), {run['tok_s']:.0f} tok/s, peak {run['peak_gb']:.2f} GB, "
+                f"ckpt_wait_s {run['ckpt_wait_s']:.3f} over {run['ckpt_saves']} saves, restore "
+                f"{run['restore_s']:.3f} s; launches {counts} [{smi}]")
+            del g, out, trainer
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    first, restart = runs
+    if first["taken"] != EXAMPLES_STEPS[0] or first["restore_s"] != 0.0:
+        raise AssertionError(f"{tag} the first run took {first['taken']} steps, restore "
+                             f"{first['restore_s']} s")
+    if restart["taken"] != EXAMPLES_STEPS[1] - EXAMPLES_STEPS[0] or not restart["restored"]:
+        raise AssertionError(f"{tag} the restart took {restart['taken']} steps and did not "
+                             f"log \"[trainer] restored step {EXAMPLES_STEPS[0]}\"")
+    logged = first["logged"] + restart["logged"]
+    if not (len(logged) >= 2 and logged[-1] < logged[0]):
+        raise AssertionError(f"{tag} the logged loss did not fall: {logged}")
+    readings.update(runs=runs, launches=launches, phase_s=time.perf_counter() - t_phase)
+    log(f"{tag} logged loss {logged[0]:.4f} -> {logged[-1]:.4f} over {EXAMPLES_STEPS[1]} steps; "
+        f"phase {readings['phase_s']:.1f} s")
+    return readings
+
+
 def main() -> int:
     import torch
 
@@ -3704,16 +3887,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     iostore = timed("iostore", phase_iostore, smi)
     log("[iostore] " + json.dumps(dict(iostore, card=smi)))
-    for row in rows:  # launches on the served, trained, trainer's and mesh paths together
+    examples = timed("examples", phase_examples, torch, smi)
+    log("[examples] " + json.dumps(dict(examples, card=smi)))
+    # launches on the served, trained, trainer's, mesh and example paths together
+    for row in rows:
         row["launches"] = sum(r["launches"][row["name"]] for r in results + trained + [trainer]) \
-            + meshed["launches"][row["name"]]
+            + meshed["launches"][row["name"]] + examples["launches"][row["name"]]
         row["launches_mesh"] = meshed["launches"][row["name"]]
+        row["launches_examples"] = examples["launches"][row["name"]]
         row["launches_serve"] = {r["arch"]: r["launches"][row["name"]] for r in results}
         row["launches_train"] = sum(r["launches"][row["name"]] for r in trained)
         row["launches_trainer"] = trainer["launches"][row["name"]]
         row["grad_parity"] = grads.get({"flash_attention_fwd": "attention", "mamba2_scan": "mamba2",
                                         "rwkv6_scan": "rwkv6"}.get(row["name"]))
         if row["name"] == "flash_attention_fwd":
+            row["shapes"]["train_100m_torch.py fp32"] = examples["fa_f32"]
             row["grad_parity_mla_d192"] = grads["attention_mla"]
             row["grad_parity_full"] = grads["attention_full"]
     print(json.dumps({"kernels": rows}))

@@ -350,6 +350,23 @@ def spec_placements(spec: Sequence, mesh) -> list:
     return out
 
 
+def batch_zeros(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device,
+                mesh, batch_dim: int) -> torch.Tensor:
+    """Zeros of ``shape``; with a ``mesh`` a DTensor whose ``batch_dim`` lies
+    over the data axes (``constrain_batch``'s placement), made shard by
+    shard: a serving cache, written in place by the layers."""
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    spec = constrain_spec(mesh, shape, {batch_dim: "dp"}) or (None,) * len(shape)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    local = [n // math.prod(sizes[a] for a in ((s,) if isinstance(s, str) else s or ()))
+             for n, s in zip(shape, spec)]
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh,
+                              spec_placements(spec, mesh), run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def constrain_dims(x: torch.Tensor, assignments: Dict[int, str],
                    free: Sequence[int] = ()) -> torch.Tensor:
     """Pin activation dims to mesh axes: a DTensor is redistributed to the

@@ -38,7 +38,6 @@ reference's ``dots_with_no_batch_dims_saveable``), else saving nothing
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
@@ -50,10 +49,9 @@ from . import mlp as mlpm
 from . import ssm
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
-from .common import (active_mesh, apply_norm, chunked_softmax_xent, constrain_batch,
-                     constrain_spec, dense_init, embed_tokens, embedding_init, init_device,
-                     is_dtensor, lm_head_logits, merge_visual, norm_init, positions_for,
-                     remat, spec_placements)
+from .common import (active_mesh, apply_norm, batch_zeros, chunked_softmax_xent,
+                     constrain_batch, dense_init, embed_tokens, embedding_init, init_device,
+                     is_dtensor, lm_head_logits, merge_visual, norm_init, positions_for, remat)
 from .config import ModelConfig, check_supported
 
 Tree = Dict[str, Any]
@@ -334,23 +332,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     out = []
     for g in layer_groups(cfg):
         one = _cache_one(cfg, g.kind, batch, max_len, dt, torch.device("meta"))
-        out.append({k: _zeros((g.count, *v.shape), v.dtype, device, mesh)
+        out.append({k: batch_zeros((g.count, *v.shape), v.dtype, device, mesh, 1)
                     for k, v in one.items()})
     return out
-
-
-def _zeros(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device,
-           mesh) -> torch.Tensor:
-    if mesh is None:
-        return torch.zeros(shape, dtype=dtype, device=device)
-    from torch.distributed.tensor import DTensor
-    spec = constrain_spec(mesh, shape, {1: "dp"}) or (None,) * len(shape)
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    local = [n // math.prod(sizes[a] for a in ((s,) if isinstance(s, str) else s or ()))
-             for n, s in zip(shape, spec)]
-    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh,
-                              spec_placements(spec, mesh), run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
 
 
 def _write(cache: Tree, state: Tree) -> None:

@@ -37,8 +37,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops, ref
 from . import attention as attn
 from . import mlp as mlpm
-from .common import (apply_norm, chunked_softmax_xent, embed_tokens, embedding_init,
-                     init_device, lm_head_logits, norm_init)
+from .common import (active_mesh, apply_norm, batch_zeros, chunked_softmax_xent,
+                     embed_tokens, embedding_init, init_device, is_dtensor, lm_head_logits,
+                     norm_init)
 from .config import ModelConfig
 
 Tree = Dict[str, Any]
@@ -171,13 +172,17 @@ def loss(cfg: ModelConfig, params: Tree, batch: Dict) -> torch.Tensor:
 # -- serving ------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, params: Tree, mem: torch.Tensor, max_len: int) -> Tree:
     """Self-attention caches and the precomputed cross K/V of each decoder
-    layer."""
-    B = mem.shape[0]
+    layer.  Over a mesh (``mem`` a DTensor) the self-attention caches are
+    DTensors with their rows over the data axes, as ``lm.init_cache`` lays
+    out its caches."""
+    mesh = active_mesh() if is_dtensor(mem) else None
+    one = attn.attn_init_cache(cfg, mem.shape[0], max_len, cfg.compute_tdtype(),
+                               torch.device("meta"))
     layers = []
     for bp in params["dec_layers"]:
         mk, mv = _mem_kv(cfg, bp, mem)
-        layers.append({"self": attn.attn_init_cache(cfg, B, max_len, cfg.compute_tdtype(),
-                                                    mem.device),
+        layers.append({"self": {k: batch_zeros(v.shape, v.dtype, mem.device, mesh, 0)
+                                for k, v in one.items()},
                        "mem_k": mk, "mem_v": mv})
     return {"layers": layers}
 

@@ -17,7 +17,10 @@ files and ``results.json`` in the output directory:
   dispatch in place of the smoke config's dropless one) or ``capacity3``
   (the same with 3 experts, which do not split over "model": under tp each
   rank combines its partial sum over the experts' split hidden dim);
-* ``generate``: per (arch, profile) the greedy tokens of prefill + decode;
+* ``generate``: per (arch, profile) the greedy tokens of prefill + decode
+  (``SERVE_ARCHS`` beside ``ARCHS``: the archs only served over the mesh
+  here; qwen2-vl with its seeded visual embeddings, whisper with its
+  seeded frame embeddings, split over the data axes as ``_serve`` does);
 * ``steps``: per (arch, profile) the losses and every state leaf after
   three ``make_train_step`` steps;
 * ``ckpt``: the initial tinyllama train state saved by the checkpoint
@@ -40,8 +43,12 @@ torch.set_num_threads(1)
 
 ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m", "deepseek-v2-236b", "zamba2-1.2b",
          "rwkv6-7b")
+# served over the mesh (greedy tokens) beside ARCHS, as the reference's
+# launch/serve.py serves every arch under mesh_context(make_host_mesh())
+SERVE_ARCHS = ("gemma-2b", "gemma-7b", "command-r-35b", "qwen2-vl-7b", "whisper-tiny")
 B, S = 4, 64            # S: one RWKV6 chunk, half a Mamba2 chunk, one loss chunk
 PROMPT, GEN = 16, 4
+N_IMG = 8               # visual embeddings a prompt, as launch/serve.py
 OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10, eps=1e-3)
 DATA = dict(seq_len=32, batch_size=4, seed=5)
 FIT_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=12, grad_clip=1.0, eps=1e-3)
@@ -71,6 +78,21 @@ def batch_of(cfg, seed=1):
     rng = np.random.default_rng(seed)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
     return {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+
+
+def prompt_of(cfg):
+    """The greedy-token cases' prompt: the tokens, with seeded visual
+    embeddings (B, N_IMG, d_model) for a ``visual_stub`` config and seeded
+    frame embeddings (B, n_audio_ctx, d_model) for an ``enc_dec`` one."""
+    prompt = {"tokens": batch_of(cfg, 2)["tokens"][:, :PROMPT]}
+    rng = np.random.default_rng(3)
+    if cfg.visual_stub:
+        prompt["visual_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, N_IMG, cfg.d_model)).astype(np.float32))
+    if cfg.enc_dec is not None:
+        prompt["frames"] = torch.from_numpy(
+            rng.standard_normal((B, cfg.enc_dec.n_audio_ctx, cfg.d_model)).astype(np.float32))
+    return prompt
 
 
 def loss_and_grads(model, params, batch, thread=False):
@@ -164,7 +186,7 @@ def main(rank, world, store, job_path):
         t0 = time.perf_counter()
         cfg = config(arch)
         model, params = params_of(cfg)
-        prompt = {"tokens": batch_of(cfg, 2)["tokens"][:, :PROMPT]}
+        prompt = prompt_of(cfg)
         with mesh_context(mesh, profile):
             toks = make_generate_loop(model, GEN)(replicate(params, mesh),
                                                   shard_batch(prompt, mesh), PROMPT + GEN + 1)

@@ -16,7 +16,10 @@ case and write the results, which the parametrised cases read:
   profile), equal to one process at 1e-5; the one-process loss and
   gradients equal JAX's at 1e-4;
 * greedy tokens (prefill + decode, the cache's rows over the data axes)
-  identical to one process;
+  identical to one process; on (2,2) under "tp" also those of the archs
+  only served over a mesh (gemma-2b, gemma-7b, command-r-35b, qwen2-vl-7b
+  with visual embeddings, whisper-tiny with frame embeddings), as the
+  reference's launch/serve.py serves every arch over the host mesh;
 * three ``make_train_step`` steps: every state leaf at 1e-5;
 * checkpoints: the train state saved from the ranks is the meshless save
   byte for byte (manifest but its wall time, every shard file), and
@@ -72,7 +75,8 @@ GENERATE = [(a, p) for a in W.ARCHS for p in PROFILES]
 # tokens under tp and the train steps of TinyLlama alone (Trainer.fit runs
 # more of them), on (2,2) every arch; (profile of the steps, archs)
 GENERATE_ON = {"2x1": [g for g in GENERATE if g[1] == "tp"],
-               "1x2": [g for g in GENERATE if g[1] == "tp"], "2x2": GENERATE}
+               "1x2": [g for g in GENERATE if g[1] == "tp"],
+               "2x2": GENERATE + [(a, "tp") for a in W.SERVE_ARCHS]}
 STEPS = {"2x1": ("fsdp", W.ARCHS[:1]), "1x2": ("tp", W.ARCHS[:1]), "2x2": ("tp", W.ARCHS)}
 
 
@@ -195,7 +199,7 @@ def test_one_process_equals_jax(arch):
 def test_greedy_tokens_identical(runs, mesh, arch, profile):
     cfg = W.config(arch)
     model, params = W.params_of(cfg)
-    prompt = {"tokens": W.batch_of(cfg, 2)["tokens"][:, :W.PROMPT]}
+    prompt = W.prompt_of(cfg)
     want = make_generate_loop(model, W.GEN)(params, prompt, W.PROMPT + W.GEN + 1)
     np.testing.assert_array_equal(_load(runs, mesh, f"generate_{arch}_{profile}")[0],
                                   want.numpy())

@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py import neither JAX nor the reference package."""
+"""The port, its example drivers (``examples/*_torch.py``) and chip_smoke.py
+import neither JAX nor the reference package."""
 
 import ast
 import os
@@ -9,7 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -23,7 +25,8 @@ def _imported_modules(path: Path):
 
 def test_port_sources_found():
     names = {p.name for p in PORT_FILES}
-    assert {"bridge.py", "ops.py", "serve.py", "chip_smoke.py"} <= names
+    assert {"bridge.py", "ops.py", "serve.py", "chip_smoke.py", "quickstart_torch.py",
+            "lsm_serving_torch.py", "checkpoint_dr_torch.py", "train_100m_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
