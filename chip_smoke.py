@@ -8,7 +8,10 @@ Phases, each of which raises on failure (nothing is caught):
 1. device  — name and power limit (nvidia-smi), torch and CUDA versions;
              requires compute capability 9.0; turns TF32 off.
 2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc, one process
-             per source, all at once.
+             per source, all at once (a library built before is reused,
+             with the ptxas report kept beside it); prints every kernel's
+             registers and spills and fails if an fp32 flash instance is
+             not reported or spills.
 3. kernels — the attention kernels against their plain torch versions on
              the card, at the serve shape of every main path that attends
              (taken from its config: TinyLlama's GQA, Zamba2's MHA, and
@@ -181,11 +184,14 @@ Phases, each of which raises on failure (nothing is caught):
              subprocesses (each must exit 0, quickstart must print
              "identical result"; timings printed, not gated); the fp32
              flash kernel against its plain version at the ~100M llama's
-             shape (B 8, H 12, KV 4, S = T = 256, D 64, causal; 2e-5), timed
-             beside its plain version, SDPA and its bound at the fp32 rate
-             outside the tensor cores; then ``train_100m_torch.py`` in this
-             process at its full ~100M config (fp32, remat off), 100 steps
-             and a restart to 120 on the same temporary work directory,
+             shape (B 8, H 12, KV 4, S = T = 256, D 64, causal; 2e-5),
+             beside its tf32 split emulated in plain torch (three terms
+             must pass that limit, one tf32 pass must fail it), timed
+             beside its plain version, SDPA, its 3xTF32 bound on the tensor
+             cores and its bound at the fp32 rate outside them; then
+             ``train_100m_torch.py`` in this process at its full ~100M
+             config (fp32, remat off), 100 steps and a restart to 120 on
+             the same temporary work directory,
              which must restore step 100: flash launches 12 a step, no
              other kernel, the logged loss falling; parameters, step ms,
              tok/s, peak memory, checkpoint stall and restore seconds.
@@ -362,6 +368,48 @@ def attention_f32(torch, q, k, v, causal, shift=0, drop_from=None):
     return torch.where(vis.any(-1, keepdim=True), p, 0.0) @ v
 
 
+def tf32_round(torch, x):
+    """fp32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest on the low 13 mantissa bits, ties away from zero (on the bit
+    pattern: add half of the dropped part's range, a carry running into the
+    exponent, then clear the 13 bits)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def attention_tf32_split(torch, q, k, v, causal, terms):
+    """attention_f32's function (full or causal at offset T - S) with both
+    products made as the tensor cores make them from tf32 operand splits,
+    none of the port's code: x = hi + lo, hi = tf32_round(x), lo =
+    tf32_round(x - hi).  ``terms`` 3 sums lo hi + hi lo + hi hi (3xTF32, the
+    fp32 kernel's split), 1 takes hi hi alone (one tf32 pass).  A product
+    of two tf32 values is exact in fp32 and the sums are fp32's (TF32 is
+    off for torch's own products), so this is that arithmetic up to the
+    order of the sums.  As in the kernel, the scale multiplies the scores
+    and P is divided by its row sums after P V."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms is 1 or 3, not {terms}")
+
+    def product(a, b):
+        ah, bh = tf32_round(torch, a), tf32_round(torch, b)
+        if terms == 1:
+            return ah @ bh
+        al, bl = tf32_round(torch, a - ah), tf32_round(torch, b - bh)
+        return al @ bh + ah @ bl + ah @ bh
+
+    q, k, v = q.float(), k.float(), v.float()
+    G = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    S, T = q.shape[2], k.shape[2]
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(T, device=q.device)[None, :]
+    vis = j <= i + T - S if causal else torch.ones((S, T), dtype=torch.bool, device=q.device)
+    s = (product(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5).masked_fill(~vis, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(m == -math.inf, 0.0, m))  # a row that sees no key: zeros
+    return product(p, v) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
 def decode_f32(torch, q, k, v, length, keep=None, slices=None):
     """Dense fp32 decode attention with an explicit mask, none of the port's
     code: the heads of batch b see key j iff j < length[b] (and keep[b, j]);
@@ -387,6 +435,11 @@ def decode_f32(torch, q, k, v, length, keep=None, slices=None):
     return torch.einsum("bht,bhtd->bhd", e, v) / e.sum(-1, keepdim=True).clamp_min(1e-30)
 
 
+# windows that device_ms profiled again because the profiler returned no
+# device events; the rows it serves carry their share (``profiler_retries``)
+profiler_retries = 0
+
+
 def device_ms(torch, fn, inputs, iters=30, warmup=3):
     """(device ms per call, host µs per call).  Device time is every kernel
     and copy that ``iters`` calls launched, summed from torch.profiler's
@@ -394,6 +447,7 @@ def device_ms(torch, fn, inputs, iters=30, warmup=3):
     rate does not count), over the calls.  Host time is the issue time of
     the same calls without the profiler and without waiting for the card.
     ``inputs`` cycle as in time_ms."""
+    global profiler_retries
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warmup):
@@ -404,15 +458,22 @@ def device_ms(torch, fn, inputs, iters=30, warmup=3):
         fn(*inputs[i % len(inputs)])
     host_us = (time.perf_counter() - t0) / iters * 1e6
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*inputs[i % len(inputs)])
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type != torch.autograd.DeviceType.CPU)
-    if busy_us <= 0:
-        raise RuntimeError("device_ms: the profiler saw no device time")
-    return busy_us / iters / 1e3, host_us
+    # the profiler has come back without device events now and then (once
+    # in a whole run, at a shape it had read before): such a window is
+    # profiled again, at most twice
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*inputs[i % len(inputs)])
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type != torch.autograd.DeviceType.CPU)
+        if busy_us > 0:
+            return busy_us / iters / 1e3, host_us
+        profiler_retries += 1
+        log(f"[profile] no device time in the window: profiled again ({profiler_retries} "
+            "windows so far)")
+    raise RuntimeError("device_ms: the profiler saw no device time")
 
 
 def bound(flops, nbytes, peak_flops):
@@ -440,19 +501,46 @@ def phase_device(torch):
 
 def phase_build():
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
 
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s "
         f"(nvcc wall {build.build_seconds:.1f} s): {', '.join(sorted(libs))}")
-    for name, out in sorted(build.ptxas_log.items()):
-        for line in out.splitlines():
-            if "entry function" in line:  # the mangled kernel name, less its namespace
-                log(f"[build] {name}: " + re.sub(r"^.*?_cu_[0-9a-f]{8}\d+", "", line.split("'")[1])
-                    .split("Ev", 1)[0])
-            elif "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
-    return libs
+    ptxas = {name: _ptxas_entries(out) for name, out in sorted(build.ptxas_log.items())}
+    for name, entries in ptxas.items():
+        for kernel, (regs, stores, loads) in entries.items():
+            log(f"[build] {name}: {kernel}: {regs} registers, spill stores {stores} bytes, "
+                f"spill loads {loads} bytes")
+    # the fp32 flash kernel's design holds every D in registers (csrc note):
+    # each instance must be reported, and none may spill
+    f32 = {k: v for k, v in ptxas.get("flash_attention", {}).items() if k.startswith("fa_fwd_f32")}
+    want = {f"fa_fwd_f32<{d}>" for d in fa._HEAD_DIMS}
+    if set(f32) != want:
+        raise AssertionError(f"[build] ptxas reported {sorted(f32)}, not {sorted(want)}")
+    spilled = {k: v for k, v in f32.items() if v[1] or v[2]}
+    if spilled:
+        raise AssertionError(f"[build] the fp32 flash kernel spills: {spilled}")
+    return ptxas
+
+
+def _ptxas_entries(out):
+    """{kernel: [registers, spill store bytes, spill load bytes]} from what
+    ``ptxas -v`` printed.  A kernel is its mangled name from its own name
+    on (after the anonymous namespace's ``_cu_<hash><length>``), with its
+    integer template arguments written out: ``fa_fwd_bf16<64, 2>``."""
+    entries, kernel = {}, None
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            name = re.sub(r"^.*?_cu_[0-9a-f]{8}\d+", "", line.split("'")[1])
+            args = re.match(r"(\w+?)I((?:Li\d+E)+)E", name)
+            kernel = f"{args[1]}<{', '.join(re.findall(r'\d+', args[2]))}>" if args else name
+            entries[kernel] = [None, 0, 0]
+        elif kernel and (m := re.search(r"Used (\d+) registers", line)):
+            entries[kernel][0] = int(m[1])
+        elif kernel and "spill stores" in line:
+            entries[kernel][1:] = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+    return entries
 
 
 def _prefill_inputs(torch, gen, B, H, KV, S, T, D, dtype, dv=None):
@@ -704,6 +792,7 @@ def phase_kernels(torch):
                                           < ln[:, None])[:, None, None])
                    for q, k, v, ln in dec_in]
         t_bound, by = bound(4 * H * D * sum(length), nbytes, H100.peak_flops)
+        retries = profiler_retries
         ms, host_us = device_ms(torch, dec.flash_decode, dec_in)
         lib_ms, lib_host_us = device_ms(torch, lambda q, k, v, mask: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), sdpa_in)
@@ -712,7 +801,8 @@ def phase_kernels(torch):
                "plain_ms": device_ms(torch, dec.decode_plain, dec_in, iters=10)[0],
                "library_ms": lib_ms, "library_host_us_per_call": lib_host_us,
                "bound_ms": t_bound, "bound_by": by,
-               "events_ms": time_ms(torch, dec.flash_decode, dec_in)}
+               "events_ms": time_ms(torch, dec.flash_decode, dec_in),
+               "profiler_retries": profiler_retries - retries}
         del dec_in, sdpa_in
         log(f"[kernels] flash_decode {row['shape']} (C={row['splits']}): kernel {ms:.4f} ms "
             f"device ({100 * t_bound / ms:.0f}% of the bound), host {host_us:.1f} us a call, "
@@ -3669,7 +3759,7 @@ def phase_iostore(smi):
 
 
 # the example drivers (examples/*_torch.py).  train_100m_torch.py trains
-# its full ~100M config (fp32, remat off: the scalar fp32 flash kernel,
+# its full ~100M config (fp32, remat off: the fp32 flash kernel `fa_fwd_f32`,
 # once a layer a step); first EXAMPLES_STEPS[0] steps, then the restart to
 # EXAMPLES_STEPS[1] on the same work directory, which must restore the first
 # run's last checkpoint.  Budget: the phase within 75 s.
@@ -3680,9 +3770,14 @@ EXAMPLES_STEPS = (100, 120)
 # fa_fwd_f32 at the ~100M llama's attention: (B, H, KV, S, T, D, causal),
 # checked against the run's config after it
 EXAMPLES_FA = (8, 12, 4, 256, 256, 64, True)
-# one H100 SXM's float32 rate outside the tensor cores, NVIDIA's data sheet:
-# the fp32 kernel's bound (roofline.HW holds the bf16 tensor rate only)
+# one H100 SXM's float32 rate outside the tensor cores and its dense TF32
+# tensor rate, NVIDIA's data sheet (roofline.HW holds the bf16 tensor rate
+# only).  The fp32 kernel makes each product as three tf32 products
+# (3xTF32), so its bound is 3x the operations at the TF32 rate, or the
+# bytes; the operations at the CUDA-core rate are printed beside it.
 FP32_PEAK_FLOPS = 67e12
+TF32_PEAK_FLOPS = 495e12
+TF32_PRODUCTS = 3
 
 
 def _example_driver(script, *argv):
@@ -3702,39 +3797,60 @@ def _example_driver(script, *argv):
 
 
 def _fa_f32_at_the_train_shape(torch, tag):
-    """fa_fwd_f32 against its plain version at EXAMPLES_FA (fp32 tolerance);
-    its CUDA-event time (mean of 20 launches over inputs beyond L2), the
-    plain version's and SDPA's on the same inputs, and the bound."""
+    """fa_fwd_f32 against its plain version at EXAMPLES_FA (fp32 tolerance),
+    beside the tensor cores' split emulated in plain torch: the 3-term split
+    must pass the same limit and one tf32 pass must be rejected by it.  Its
+    CUDA-event time (mean of 20 launches over inputs beyond L2), the plain
+    version's and SDPA's on the same inputs, and both bounds: 3xTF32 on the
+    tensor cores (``bound_ms``) and fp32 on the CUDA cores."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     B, H, KV, S, T, D, causal = EXAMPLES_FA
-    f32 = torch.float32
+    f32, tol = torch.float32, TOL["float32"]
     gen = torch.Generator(device="cuda").manual_seed(27)
     q, k, v = _prefill_inputs(torch, gen, B, H, KV, S, T, D, f32)
     label = f"flash_attention_fwd float32 B={B} H={H} KV={KV} S={S} T={T} D={D} causal={causal}"
-    err = assert_close(label, fa.flash_attention_fwd(q, k, v, causal),
-                       fa.attention_plain(q, k, v, causal), TOL["float32"])
-    del q, k, v
+    want = fa.attention_plain(q, k, v, causal)
+    err = assert_close(label, fa.flash_attention_fwd(q, k, v, causal), want, tol)
+    split = {}
+    for terms in (3, 1):
+        e, bad, share = beyond(attention_tf32_split(torch, q, k, v, causal, terms), want, tol, tol)
+        split[terms] = {"max_abs_err": e, "beyond": bad, "share_of_limit": share}
+        log(f"{tag} tf32 split emulated in torch, {terms} term{'s' if terms > 1 else ''}, same "
+            f"inputs: max_abs_err={e:.3e} against plain (uses {100 * share:.0f}% of {tol:g}; "
+            f"{bad} elements beyond)")
+    if split[3]["beyond"]:
+        raise AssertionError(f"{tag} the 3xTF32 emulation fails the fp32 limit: {split[3]}")
+    if not split[1]["beyond"]:
+        raise AssertionError(f"{tag} the fp32 limit does not reject one tf32 pass: {split[1]}")
+    del q, k, v, want
     nbytes = 4 * (2 * B * H * S * D + 2 * B * KV * T * D)
     inputs = copies_beyond_l2(lambda: _prefill_inputs(torch, gen, B, H, KV, S, T, D, f32),
                               nbytes)
     pairs = sum(max(0, min(T, i + T - S + 1)) for i in range(S)) if causal else S * T
-    t_bound, by = bound(4 * B * H * D * pairs, nbytes, FP32_PEAK_FLOPS)
+    flops = 4 * B * H * D * pairs
+    t_bound, by = bound(TF32_PRODUCTS * flops, nbytes, TF32_PEAK_FLOPS)
+    t_cc, by_cc = bound(flops, nbytes, FP32_PEAK_FLOPS)
     row = {"shape": f"B={B} H={H} KV={KV} S={S} T={T} D={D} "
                     f"{'causal' if causal else 'full'} fp32 (train_100m_torch.py)",
-           "max_abs_err": err, "tol": TOL["float32"],
+           "max_abs_err": err, "tol": tol, "split_emulation": split,
            "ms": time_ms(torch, lambda q, k, v: fa.flash_attention_fwd(q, k, v, causal), inputs),
            "plain_ms": time_ms(torch, lambda q, k, v: fa.attention_plain(q, k, v, causal),
                                inputs, iters=5, warmup=1),
            "library_ms": time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
                q, k, v, is_causal=causal, enable_gqa=True), inputs),
-           "bound_ms": t_bound, "bound_by": by, "peak_flops": FP32_PEAK_FLOPS}
+           "bound_ms": t_bound, "bound_by": by, "peak_flops": TF32_PEAK_FLOPS,
+           "flops_factor": TF32_PRODUCTS,
+           "bound_cuda_core_ms": t_cc, "bound_cuda_core_by": by_cc,
+           "peak_flops_cuda_core": FP32_PEAK_FLOPS}
     del inputs
-    log(f"{tag} {label}: kernel {row['ms']:.4f} ms ({100 * t_bound / row['ms']:.0f}% of the "
-        f"bound), plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
-        f"{t_bound:.4f} ms ({by}; fp32 {FP32_PEAK_FLOPS / 1e12:g} TFLOP/s, "
-        f"{H100.hbm_bw / 1e12:g} TB/s)")
+    log(f"{tag} {label}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA "
+        f"{row['library_ms']:.4f} ms; bound {t_bound:.4f} ms ({by}; {TF32_PRODUCTS} x "
+        f"{flops / 1e9:.3f} GFLOP at TF32 {TF32_PEAK_FLOPS / 1e12:g} TFLOP/s, "
+        f"{nbytes / 1e6:.2f} MB at {H100.hbm_bw / 1e12:g} TB/s): {100 * t_bound / row['ms']:.1f}% "
+        f"of it; on the CUDA cores {t_cc:.4f} ms ({by_cc}; fp32 {FP32_PEAK_FLOPS / 1e12:g} "
+        f"TFLOP/s): {100 * t_cc / row['ms']:.1f}%")
     return row
 
 
@@ -3859,7 +3975,7 @@ def main() -> int:
         return out
 
     smi = timed("device", phase_device, torch)
-    timed("build", phase_build)
+    ptxas = timed("build", phase_build)
     rows = timed("kernels", phase_kernels, torch) + timed("scans", phase_scans, torch)
     results = []
     for arch, prompt, layers in PATHS:
@@ -3902,6 +4018,9 @@ def main() -> int:
                                         "rwkv6_scan": "rwkv6"}.get(row["name"]))
         if row["name"] == "flash_attention_fwd":
             row["shapes"]["train_100m_torch.py fp32"] = examples["fa_f32"]
+            row["ptxas_fp32"] = {kernel: dict(zip(("registers", "spill_stores", "spill_loads"), v))
+                                 for kernel, v in ptxas["flash_attention"].items()
+                                 if kernel.startswith("fa_fwd_f32")}
             row["grad_parity_mla_d192"] = grads["attention_mla"]
             row["grad_parity_full"] = grads["attention_full"]
     print(json.dumps({"kernels": rows}))

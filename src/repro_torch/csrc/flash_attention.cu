@@ -58,8 +58,65 @@
 //   values, 1.57e9 bytes, take 0.47 ms at 3.35 TB/s, the 3.9e11 operations
 //   0.40 ms at 989 TFLOP/s.
 //
-// float32 inputs take a scalar kernel (CUDA cores, fp32 FMA), because the
-// tensor cores would round fp32 operands to tf32.
+// float32 inputs take their own kernel, also on the tensor cores.  What
+// bounds it: at train_100m's shape (B = 8, H = 12, KV = 4, S = T = 256,
+// D = 64, causal) the work is 3,158,016 visible pairs x 4 D = 0.808 GFLOP
+// against 16.78 MB of q, k, v and o.  On the CUDA cores (67 TFLOP/s fp32)
+// the operations take 0.0121 ms.  One tf32 pass on the tensor cores rounds
+// every operand to 11 significant bits, about 3e-4 in the output against
+// the 2e-5 that fp32 is held to; so each product is three tf32 products
+// (3xTF32), 2.43 GFLOP at 495 TFLOP/s: 0.0049 ms, under the bytes' 0.0050
+// ms at 3.35 TB/s.  This design is bound by bytes, at 0.0050 ms.
+//
+// The fp32 design, and what each part does about that:
+// - Both products on `mma.sync.m16n8k8` with tf32 operands.  Each fp32
+//   operand x is split into hi = rna(x) and lo = rna(x - hi), rna being
+//   cvt.rna.tf32.f32's rounding (to nearest, ties away from zero); a
+//   product is lo hi + hi lo + hi hi, accumulated in fp32, and the dropped
+//   lo lo is about 2^-22 of it: the output stays within ~1e-6 of fp32
+//   arithmetic.  mma.sync and not wgmma: wgmma takes tf32 operands only
+//   K-major, so V ([key][d], which P V reads MN-major) would have to be
+//   written transposed into shared memory; mma.sync reads V as it lies and
+//   takes P from the registers.
+// - The splits are made in registers right after each shared load, so
+//   shared memory holds the fp32 tiles as cp.async lands them and no pass
+//   over a tile comes before it is read; each of the four warps splits the
+//   K and V values it reads.  rna is written as an add and a mask (the
+//   cvt adds a NaN test and a select around them): ~14% less time at the
+//   train shape (0.0313 vs 0.0365 ms in one call, tools/
+//   torch_flash_variants.py --kernel flash32).
+// - A CTA is four warps of 16 query rows, 64 rows a CTA (the scalar
+//   kernel's was 16), so every K/V tile in shared memory serves 64 rows
+//   and K and V cross from L2 to shared memory a quarter as often.  At the
+//   train shape that is 4 x 96 = 384 CTAs, two an SM.
+// - K and V tiles (64 keys at D = 64, 32 at the wider heads, for shared
+//   memory) land through cp.async in a two-stage ring, as in the bf16
+//   kernel: tile j + 1's copies are in flight while tile j is used.  Rows
+//   past T and query rows past S are zero-filled.  Q is loaded once.
+// - Every row in shared memory is padded to D + 4 floats, so the fragment
+//   loads are free of bank conflicts: Q's and K's (row g, column t4) fall
+//   in bank 4 g + t4, V's (row 2 t4, column g) in bank 8 t4 + g.
+// - P's score accumulator is the A operand as it stands.  It holds keys
+//   2 t4 and 2 t4 + 1 of each block of 8 where A wants k indices t4 and t4
+//   + 4; P V takes a block's keys in that order, and V's B fragment reads
+//   its rows 2 t4 and 2 t4 + 1, so no value moves between lanes.
+// - The masks, the tiles above a warp's diagonal skipped, the online
+//   softmax in log2 units (ex2.approx) and the launch order (longest
+//   causal rows first) are the bf16 kernel's.
+// - Budget per D, 128 threads: shared memory (64 + 4 BK) (D + 4) 4 bytes,
+//   87,040 at D = 64, 101,376 at D = 128 (two CTAs an SM), 150,528 at D =
+//   192 and 199,680 at D = 256 (one); O takes D / 2 registers a thread.
+//   ptxas: 186, 215, 200 and 237 registers, none spills.  At D = 192 and
+//   256 the K/V copies are issued by a loop that is not unrolled;
+//   unrolled, their addresses stay in registers and the kernel spilled 20
+//   and 312 bytes.
+// - What holds it at the train shape is open; two causes fit the same
+//   call's readings (tools/torch_flash_variants.py --kernel flash32):
+//   latency (the shape without the causal mask, twice the work, takes
+//   1.10-1.18x as long; 8x the batch takes 4.55-4.87x) and wave
+//   quantization (384 CTAs on 264 slots, two an SM on 132 SMs, are 1.45
+//   waves: the second runs 120 CTAs with most slots idle; 8x the batch
+//   is 11.6 waves).
 //
 // Semantics beyond the TPU kernel: ragged S and T tails are masked instead
 // of refused, and a query row that sees no key returns zeros.
@@ -440,94 +497,265 @@ fa_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// float32: scalar kernel
+// float32: mma.sync on tf32 operand splits (3xTF32)
 // ---------------------------------------------------------------------------
-constexpr int FBQ = 16;  // query rows per CTA (4 per warp)
-constexpr int FBK = 32;  // keys per tile, one per lane
+// The kernel's shape at head dimension D
+template <int D>
+struct F32 {
+  static constexpr int WARPS = 4;               // 16 query rows each
+  static constexpr int ROWS = 16 * WARPS;       // query rows per CTA
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BK = D == 64 ? 64 : 32;  // keys per K/V tile (shared memory)
+  static constexpr int LD = D + 4;              // row stride of every tile in shared memory, floats
+  // two CTAs an SM at D = 64 and 128 (shared memory), one at wider heads
+  static constexpr int MIN_BLOCKS = D <= 128 ? 2 : 1;
+  // Q (ROWS x D), then two stages of K (BK x D) and V (BK x D), each row
+  // padded to LD floats (the fragment loads are then free of bank
+  // conflicts: see the note at the head of the file)
+  static constexpr size_t SMEM = (size_t)(ROWS + 4 * BK) * LD * 4;
+};
+
+// Rows [row0, row0 + R) of a (rows, D) fp32 matrix with row stride `ld`
+// into the tile at `dst` (rows of D + 4 floats); rows at or past `nrows`
+// are zeros.  At D > 128 the copies are issued by a loop that is not
+// unrolled: unrolled, the compiler keeps every copy's address in registers
+// across the K/V loop, and the kernel spills.
+template <int R, int D>
+__device__ __forceinline__ void load_tile_f32(uint32_t dst, const float* src, long long ld,
+                                              int row0, int nrows, int tid) {
+  constexpr int CPR = D / 4;  // 16-byte chunks per row
+  constexpr int THREADS = F32<D>::THREADS;
+  constexpr int N = R * CPR / THREADS;
+  static_assert(N * THREADS == R * CPR, "tile must split evenly over the CTA");
+  auto copy = [&](int it) {
+    const int i = it * THREADS + tid;
+    const int r = i / CPR, c = i % CPR;
+    const bool in = row0 + r < nrows;
+    const float* s = in ? src + (long long)(row0 + r) * ld + c * 4 : src;
+    cp_async16(dst + (uint32_t)(r * (D + 4) + c * 4) * 4, s, in);
+  };
+  if constexpr (D <= 128) {
+#pragma unroll
+    for (int it = 0; it < N; ++it) copy(it);
+  } else {
+#pragma unroll 1
+    for (int it = 0; it < N; ++it) copy(it);
+  }
+}
+
+// x rounded to tf32 as cvt.rna.tf32.f32 rounds a finite x: to nearest on
+// the low 13 mantissa bits, ties away from zero (a carry runs into the
+// exponent).  Written as the add and the mask; the cvt adds a NaN test
+// and a select around them.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo: hi is x rounded to tf32, lo the rest rounded the same way;
+// hi + lo is x within about 2^-22 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// D(16x8, fp32) += A(16x8) B(8x8), tf32 operands
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D += A B in three tf32 products of the splits, the small terms first:
+// lo hi + hi lo + hi hi (lo lo, about 2^-22 of the product, is dropped)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
 
 template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(F32<D>::THREADS, F32<D>::MIN_BLOCKS)
 fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o, Params p) {
-  constexpr int KLD = D + 1;  // odd row stride: lane j reads row j conflict-free
-  constexpr int NC = D / 32;  // output columns per lane
-  constexpr int RW = FBQ / 4; // rows per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // [FBQ][D], pre-scaled
-  float* Ks = Qs + FBQ * D;                         // [FBK][KLD]
-  float* Vs = Ks + FBK * KLD;                       // [FBK][D]
+  constexpr int FBQ = F32<D>::ROWS;
+  constexpr int BKF = F32<D>::BK;
+  constexpr int LD = F32<D>::LD;
+  constexpr int NB = BKF / 8;     // 8-key blocks of a tile
+  constexpr int ND = D / 8;       // 8-column blocks of d
+  constexpr int KV_FLOATS = BKF * LD;
+
+  extern __shared__ __align__(16) float fsm[];
+  float* const Qs = fsm;                  // [FBQ][LD]
+  float* const KVs = Qs + FBQ * LD;       // stage s: K at KVs + 2 s KV_FLOATS, V after it
+  const uint32_t sQ = smem_u32(Qs), sKV = smem_u32(KVs);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * FBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int g = lane >> 2, t4 = lane & 3;
+  // launch order as the bf16 kernel's: groups of (batch, head) pairs, each
+  // group's query tiles heaviest first
+  const int nq = (p.S + FBQ - 1) / FBQ;
+  const int group_ctas = p.bh_per_group * nq;
+  const int first = (int)blockIdx.x / group_ctas * p.bh_per_group;
+  const int rem = (int)blockIdx.x % group_ctas;
+  const int gsize = min(p.bh_per_group, p.B * p.H - first);
+  const int bh = first + rem % gsize;
+  const int q0 = (nq - 1 - rem / gsize) * FBQ;
+  const int h = bh % p.H, b = bh / p.H;
   const int kvh = h / p.group;
+
   const float* qb = q + b * p.q_sb + h * p.q_sh;
   const float* kb = k + b * p.k_sb + kvh * p.k_sh;
   const float* vb = v + b * p.v_sb + kvh * p.v_sh;
-
-  for (int i = tid; i < FBQ * D; i += blockDim.x) {
-    int r = i / D, c = i % D;
-    Qs[i] = (q0 + r < p.S) ? qb[(long long)(q0 + r) * p.q_ss + c] * p.scale : 0.f;
-  }
-
-  float acc[RW][NC], m[RW], l[RW];
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  auto load_kv = [&](int t) {  // tile t into stage t % 2
+    const uint32_t st = sKV + (uint32_t)((t & 1) * 2 * KV_FLOATS) * 4;
+    load_tile_f32<BKF, D>(st, kb, p.k_st, t * BKF, p.T, tid);
+    load_tile_f32<BKF, D>(st + KV_FLOATS * 4, vb, p.v_st, t * BKF, p.T, tid);
+  };
 
   const int kv_end = kv_end_for_tile(p, q0, FBQ);
-  for (int k0 = 0; k0 < kv_end; k0 += FBK) {
-    __syncthreads();
-    for (int i = tid; i < FBK * D; i += blockDim.x) {
-      int r = i / D, c = i % D;
-      bool in = k0 + r < p.T;
-      Ks[r * KLD + c] = in ? kb[(long long)(k0 + r) * p.k_st + c] : 0.f;
-      Vs[r * D + c] = in ? vb[(long long)(k0 + r) * p.v_st + c] : 0.f;
-    }
-    __syncthreads();
-    const int key = k0 + lane;
+  const int ntiles = (kv_end + BKF - 1) / BKF;
+  load_tile_f32<FBQ, D>(sQ, qb, p.q_ss, q0, p.S, tid);
+  if (ntiles > 0) load_kv(0);
+  cp_async_commit();
+
+  const int wr0 = q0 + warp * 16;         // this warp's first row
+  const int w_end = wr0 < p.S ? kv_end_for_tile(p, wr0, 16) : 0;
+  const int qpos0 = wr0 + g + p.offs, qpos1 = qpos0 + 8;  // this thread's rows g, g + 8
+  const float sl2 = p.scale * 1.4426950408889634f;       // scores in log2 units
+  const float* const Qa = Qs + (warp * 16 + g) * LD + t4;  // A fragment of Q, k-step 0
+
+  float o_acc[ND][4];
 #pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const int row = warp * RW + i;
-      const int qpos = q0 + row + p.offs;
-      float sc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) sc = fmaf(Qs[row * D + d], Ks[lane * KLD + d], sc);
-      if (key >= p.T || (p.causal && key > qpos)) sc = -INFINITY;
-      float mx = sc;
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, off));
-      const float mn = fmaxf(m[i], mx);
-      const float mu = (mn == -INFINITY) ? 0.f : mn;
-      const float corr = expf(m[i] - mu);
-      const float pr = expf(sc - mu);
-      float ps = pr;
+    for (int i = 0; i < 4; ++i) o_acc[n][i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<0>();  // tile j (and, at j = 0, Q) has landed
+    __syncthreads();     // ... for every thread, and every thread is done with tile j - 1
+    if (j + 1 < ntiles) load_kv(j + 1);  // into tile j - 1's stage, while tile j is used
+    cp_async_commit();
+
+    const int k0 = j * BKF;
+    if (k0 >= w_end) continue;  // uniform over the warp
+    const float* const Ks = KVs + (j & 1) * 2 * KV_FLOATS;
+    const float* const Vs = Ks + KV_FLOATS;
+
+    // S = Q K^T: 16 rows x BKF keys; the accumulator of key block nb holds
+    // (row g, keys 8 nb + 2 t4, + 1) and (row g + 8, the same keys)
+    float s[NB][4];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffff, ps, off);
-      m[i] = mn;
-      l[i] = l[i] * corr + ps;
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-      for (int j = 0; j < FBK; ++j) {
-        const float pj = __shfl_sync(0xffffffff, pr, j);
+      for (int i = 0; i < 4; ++i) s[nb][i] = 0.f;
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pj, Vs[j * D + lane + 32 * c], acc[i][c]);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t ah[4], al[4];  // (g, t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4)
+      split_tf32(Qa[kk * 8], ah[0], al[0]);
+      split_tf32(Qa[kk * 8 + 8 * LD], ah[1], al[1]);
+      split_tf32(Qa[kk * 8 + 4], ah[2], al[2]);
+      split_tf32(Qa[kk * 8 + 8 * LD + 4], ah[3], al[3]);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {  // B(d, key) = K[key][d]: key 8 nb + g, d t4 and t4 + 4
+        const float* const kr = Ks + (nb * 8 + g) * LD + kk * 8 + t4;
+        mma_3xtf32(s[nb], ah, al, kr[0], kr[4]);
       }
     }
-  }
 
-  float* ob = o + b * p.o_sb + h * p.o_sh;
+    // mask only the tile that holds this warp's diagonal or T's end
+    if (k0 + BKF > p.T || (p.causal && k0 + BKF - 1 > wr0 + p.offs)) {
 #pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    const int row = q0 + warp * RW + i;
-    if (row >= p.S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) ob[(long long)row * p.o_ss + lane + 32 * c] = acc[i][c] * inv;
+        for (int i = 0; i < 4; ++i) {
+          const int key = k0 + nb * 8 + t4 * 2 + (i & 1);
+          const int qpos = (i & 2) ? qpos1 : qpos0;
+          if (key >= p.T || (p.causal && key > qpos)) s[nb][i] = -INFINITY;
+        }
+    }
+
+    // online softmax in fp32, log2 units
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      mx0 = fmaxf(mx0, fmaxf(s[nb][0], s[nb][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nb][2], s[nb][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffff, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffff, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // a row that has seen no key yet keeps p = 0 (exp2(-inf - 0))
+    const float mu0 = (mn0 == -INFINITY) ? 0.f : mn0 * sl2;
+    const float mu1 = (mn1 == -INFINITY) ? 0.f : mn1 * sl2;
+    const float c0 = ex2(m0 * sl2 - mu0), c1 = ex2(m1 * sl2 - mu1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      s[nb][0] = ex2(fmaf(s[nb][0], sl2, -mu0));
+      s[nb][1] = ex2(fmaf(s[nb][1], sl2, -mu0));
+      s[nb][2] = ex2(fmaf(s[nb][2], sl2, -mu1));
+      s[nb][3] = ex2(fmaf(s[nb][3], sl2, -mu1));
+      ps0 += s[nb][0] + s[nb][1];
+      ps1 += s[nb][2] + s[nb][3];
+    }
+    l0 = l0 * c0 + ps0;  // per-thread partial row sums, reduced at the end
+    l1 = l1 * c1 + ps1;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o_acc[n][0] *= c0;
+      o_acc[n][1] *= c0;
+      o_acc[n][2] *= c1;
+      o_acc[n][3] *= c1;
+    }
+
+    // O += P V.  P's accumulator is the A fragment as it stands, with the
+    // keys of block nb taken in the order 2 t4 -> k index t4, 2 t4 + 1 ->
+    // t4 + 4; V's B fragment reads its rows in the same order.
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      uint32_t ah[4], al[4];
+      split_tf32(s[nb][0], ah[0], al[0]);
+      split_tf32(s[nb][2], ah[1], al[1]);
+      split_tf32(s[nb][1], ah[2], al[2]);
+      split_tf32(s[nb][3], ah[3], al[3]);
+      // B(key, d) = V[key][d]: keys 8 nb + 2 t4 and + 1, column 8 n + g
+      const float* const vr = Vs + (nb * 8 + 2 * t4) * LD + g;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) mma_3xtf32(o_acc[n], ah, al, vr[n * 8], vr[LD + n * 8]);
+    }
+  }
+  cp_async_wait<0>();  // with no tile at all, nothing is left in flight at exit
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffff, l0, off);
+    l1 += __shfl_xor_sync(0xffffffff, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // each quad writes 32 contiguous bytes of a row
+  float* const ob = o + b * p.o_sb + h * p.o_sh;
+  const int r0 = wr0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int c = n * 8 + 2 * t4;
+    if (r0 < p.S)
+      *reinterpret_cast<float2*>(ob + (long long)r0 * p.o_ss + c) =
+          make_float2(o_acc[n][0] * inv0, o_acc[n][1] * inv0);
+    if (r1 < p.S)
+      *reinterpret_cast<float2*>(ob + (long long)r1 * p.o_ss + c) =
+          make_float2(o_acc[n][2] * inv1, o_acc[n][3] * inv1);
   }
 }
 
@@ -554,9 +782,9 @@ cudaError_t dispatch(int is_bf16, const void* q, const void* k, const void* v, v
     return launch<__nv_bfloat16>(fa_fwd_bf16<D, MIN_BLOCKS>, grid, THREADS,
                                  bf16_smem_bytes<D>(), stream, q, k, v, o, p);
   }
-  size_t smem = (size_t)(FBQ * D + FBK * (D + 1) + FBK * D) * 4;
-  dim3 grid((p.S + FBQ - 1) / FBQ, p.H, p.B);
-  return launch<float>(fa_fwd_f32<D>, grid, 128, smem, stream, q, k, v, o, p);
+  using C = F32<D>;
+  dim3 grid((unsigned)((p.S + C::ROWS - 1) / C::ROWS) * p.H * p.B);
+  return launch<float>(fa_fwd_f32<D>, grid, C::THREADS, C::SMEM, stream, q, k, v, o, p);
 }
 
 }  // namespace
@@ -576,8 +804,8 @@ extern "C" int flash_attention_fwd(
   p.causal = causal; p.offs = T - S; p.scale = scale;
   // a group's K and V together take at most 16 MiB, a third of the 50 MB
   // L2, so that they stay there while the group's CTAs run (a query head's
-  // share of its KV head is T * D * 4 / group bytes)
-  const long long kv_share = (long long)T * D * 4 / p.group;
+  // share of its KV head is T * D * 2 * (element bytes) / group bytes)
+  const long long kv_share = (long long)T * D * (is_bf16 ? 4 : 8) / p.group;
   const long long per = (16LL << 20) / (kv_share > 0 ? kv_share : 1);
   p.bh_per_group = per < 1 ? 1 : per > (long long)B * H ? B * H : (int)per;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;

@@ -5,6 +5,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 with a plain C interface, under ``<checkout>/build/kernels/`` (listed in
 ``.gitignore``).  The library's file name carries a hash of the source and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
+What ``nvcc`` printed (ptxas's registers and spills, ``-Xptxas -v``) is
+kept beside the library under the same name with ``.log``, so a reused
+library reports it too; a library without its log is built again.
 All sources are built on first use, in parallel, one ``nvcc`` each.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -56,11 +59,16 @@ def _target(src: Path) -> Path:
 
 
 def build_all() -> Dict[str, Path]:
-    """Compile every source whose library is missing; return name -> .so path."""
+    """Compile every source whose library or log is missing; fill
+    ``ptxas_log`` for every source; return name -> .so path."""
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {name: _target(src) for name, src in sources().items()}
-    todo = {n: t for n, t in targets.items() if not t.exists()}
+    todo = {n: t for n, t in targets.items()
+            if not (t.exists() and t.with_suffix(".log").exists())}
+    for name, target in targets.items():
+        if name not in todo:
+            ptxas_log[name] = target.with_suffix(".log").read_text()
     if not todo:
         return targets
     nvcc = _nvcc()
@@ -78,7 +86,12 @@ def build_all() -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"--- {name} (exit {proc.returncode}) ---\n{out}")
             continue
-        os.replace(tmp, todo[name])  # atomic: a reader never sees half a library
+        log = todo[name].with_suffix(f".{os.getpid()}.logtmp")
+        log.write_text(out)
+        # atomic: a reader never sees half a library or half a log; the log
+        # lands first, so a library beside it always has its own
+        os.replace(log, todo[name].with_suffix(".log"))
+        os.replace(tmp, todo[name])
     build_seconds = time.perf_counter() - t0
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -2,8 +2,9 @@
 
 The port of the TPU kernel ``flash_attention_fwd`` (reference package,
 ``kernels/flash_attention.py``).  The kernel is ``csrc/flash_attention.cu``
-(hand-written for Hopper, bf16 on the tensor cores, fp32 on the CUDA
-cores); :func:`attention_plain` is the same function in plain torch.
+(hand-written for Hopper, on the tensor cores: bf16 through wgmma, fp32
+through mma.sync on three tf32 products of operand splits);
+:func:`attention_plain` is the same function in plain torch.
 
 :func:`flash_attention_fwd` takes the plain version only for tensors on
 the CPU.  For CUDA tensors it launches the kernel or raises.

@@ -4,6 +4,7 @@
     python3 tools/torch_flash_variants.py [VARIANT.cu ...]
     python3 tools/torch_flash_variants.py --kernel decode [--splits 2,4,8] [VARIANT.cu ...]
     python3 tools/torch_flash_variants.py --kernel rwkv6|mamba2 [VARIANT.cu ...]
+    python3 tools/torch_flash_variants.py --kernel flash32 [VARIANT.cu ...]
 
 Builds the package's source ("head": ``src/repro_torch/csrc/
 flash_attention.cu``, ``decode_attention.cu`` with ``--kernel decode``,
@@ -33,7 +34,14 @@ mamba2`` does the same for the bf16 Mamba2 kernel: y within 2e-2 and the
 final state within 1e-4 of the plain version in fp32 on the same bf16
 values (the token recurrence for a ragged S), at zamba2-1.2b's serve
 shape (B=8, S=1024, H=64, P=N=64, G=1) and ``chip_smoke.py``'s edge cases,
-timed at the serve shape.
+timed at the serve shape.  ``--kernel flash32`` takes copies of
+``flash_attention.cu`` and checks their fp32 kernel (``fa_fwd_f32``)
+against the plain version at 2e-5 on the same cases and at
+train_100m's shape (8, 12, 4, 256, 256, 64, causal), printing the largest
+error and share of the limit; it times every build that passes in three
+turns (a, b, ..., b, a, a, b, ...; mean of 200 calls each) at that shape,
+the same shape full, at batch 64 and at S = T = 1024, beside SDPA in
+fp32.
 Needs one CUDA card and nvcc.
 """
 
@@ -80,6 +88,14 @@ MAMBA_CASES = [(8, 1024, 64, 64, 1, 64, None), (2, 1, 4, 64, 1, 64, None),
                (2, 256, 4, 64, 4, 64, None), (2, 256, 4, 64, 1, 64, 8),
                (2, 65, 4, 64, 1, 64, 1)]
 MAMBA_TIMED = (8, 1024, 64, 64, 1, 64)
+# flash32: chip_smoke.py's fp32 cases and train_100m's shape; that shape is
+# timed, and beside it the same full, at 8x the batch, and at 4x the length
+FLASH32_CASES = CASES + [cs.EXAMPLES_FA, (1, 4, 4, 130, 257, 192, True),
+                         (2, 8, 8, 129, 129, 192, True), (2, 6, 6, 47, 150, 64, False)]
+FLASH32_TIMED = {"train_100m": cs.EXAMPLES_FA,
+                 "train_100m full": cs.EXAMPLES_FA[:6] + (False,),
+                 "batch 64": (64,) + cs.EXAMPLES_FA[1:],
+                 "S = T = 1024": cs.EXAMPLES_FA[:3] + (1024, 1024) + cs.EXAMPLES_FA[5:]}
 
 
 def main() -> int:
@@ -92,7 +108,8 @@ def main() -> int:
     from repro_torch.kernels import rwkv6_scan as r6
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("flash", "decode", "rwkv6", "mamba2"), default="flash")
+    ap.add_argument("--kernel", choices=("flash", "flash32", "decode", "rwkv6", "mamba2"),
+                    default="flash")
     ap.add_argument("--splits", default="", help="decode: split counts to time, e.g. 2,4,8")
     ap.add_argument("variants", nargs="*")
     args = ap.parse_args()
@@ -101,6 +118,7 @@ def main() -> int:
         return 1
     source, symbol, argtypes, entry = {
         "flash": ("flash_attention.cu", "flash_attention_fwd", fa._ARGTYPES, "fa_fwd_bf16"),
+        "flash32": ("flash_attention.cu", "flash_attention_fwd", fa._ARGTYPES, "fa_fwd_f32"),
         "decode": ("decode_attention.cu", "flash_decode", dec._ARGTYPES, "decode_bf16"),
         "rwkv6": ("rwkv6_scan.cu", "rwkv6_scan", r6._ARGTYPES, "rwkv6_bf16"),
         "mamba2": ("mamba2_scan.cu", "mamba2_scan", m2._ARGTYPES, "mamba2_bf16"),
@@ -158,6 +176,10 @@ def main() -> int:
         _mamba2(torch, m2, fns, use, gen)
         print(f"[card] {cs.nvidia_smi_line()}")
         return 0
+    if args.kernel == "flash32":
+        _flash32(torch, F, fa, fns, use, gen)
+        print(f"[card] {cs.nvidia_smi_line()}")
+        return 0
     if args.kernel == "decode":
         splits = [int(c) for c in args.splits.split(",") if c]
         _decode(torch, F, dec, fns, use, gen, splits)
@@ -194,6 +216,39 @@ def main() -> int:
         del ins
     print(f"[card] {cs.nvidia_smi_line()}")
     return 0
+
+
+def _flash32(torch, F, fa, fns, use, gen):
+    f32, tol = torch.float32, cs.TOL["float32"]
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's products in fp32
+    passed = []
+    for name in fns:
+        use(name)
+        bad, err, share = 0, 0.0, 0.0
+        for B, H, KV, S, T, D, causal in FLASH32_CASES:
+            q, k, v = cs._prefill_inputs(torch, gen, B, H, KV, S, T, D, f32)
+            e, n, sh = cs.beyond(fa.flash_attention_fwd(q, k, v, causal),
+                                 fa.attention_plain(q, k, v, causal), tol, tol)
+            bad, err, share = bad + n, max(err, e), max(share, sh)
+        print(f"[check {name}] {'ok' if bad == 0 else f'FAIL ({bad} elements)'}; max_abs_err "
+              f"{err:.3e}, at most {100 * share:.0f}% of the 2e-5 limit", flush=True)
+        if bad == 0:
+            passed.append(name)
+    for label, (B, H, KV, S, T, D, causal) in FLASH32_TIMED.items():
+        nbytes = 4 * (2 * B * H * S * D + 2 * B * KV * T * D)
+        ins = cs.copies_beyond_l2(
+            lambda: cs._prefill_inputs(torch, gen, B, H, KV, S, T, D, f32), nbytes)
+        times = {n: [] for n in passed}
+        for name in passed + passed[::-1] + passed:  # a, b, ..., b, a, a, b, ...
+            use(name)
+            times[name].append(cs.time_ms(
+                torch, lambda q, k, v: fa.flash_attention_fwd(q, k, v, causal), ins, iters=200))
+        sdpa = cs.time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), ins, iters=200)
+        for name in passed:
+            print(f"[time {label}] {name}: {', '.join(f'{t:.4f}' for t in times[name])} ms "
+                  f"(SDPA fp32 {sdpa:.4f} ms)", flush=True)
+        del ins
 
 
 def _decode(torch, F, dec, fns, use, gen, splits):
