@@ -1973,11 +1973,13 @@ def _profile(torch, name, fn, cfg=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies); CPU ops carry their kernels'
     # device time as well and would count it twice, and so do the device-side
-    # spans of record_function ranges (ops' "plain backward: <kernel>", RANGES)
+    # spans of record_function ranges (the program's spans, RANGES), which
+    # share their host range's name
     cpu = torch.autograd.DeviceType.CPU
+    host = {e.key for e in prof.key_averages() if e.device_type == cpu}
     rows = [e for e in prof.key_averages()
             if e.device_type != cpu and e.self_device_time_total > 0
-            and not e.key.startswith("plain backward") and e.key not in RANGES]
+            and e.key not in host and e.key not in RANGES]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     if busy_ms == 0:
         log(f"[profile] {name}: wall {wall_ms:.2f} ms; the profiler saw no device time "

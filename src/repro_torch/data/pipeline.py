@@ -19,6 +19,7 @@ import numpy as np
 from repro_torch.core.api import Foreactor, io
 from repro_torch.core.device import Device
 from repro_torch.core.patterns import register_patterns
+from repro_torch.spans import span
 from repro_torch.store.recordio import HEADER, RecordShardReader, RecordShardWriter
 
 
@@ -161,25 +162,27 @@ class TokenBatchLoader:
         """Return {'tokens': [B,S], 'labels': [B,S]} for (epoch, step).
 
         If the background double-buffer already holds this batch, it is
-        returned immediately and the next batch starts loading.
+        returned immediately and the next batch starts loading.  The call,
+        its wait for the double buffer included, is the span ``data: load``.
         """
-        rec = None
-        if self._bg_pending:
-            self._bg_done.wait()
-            self._bg_pending = False
-            if self._bg_out is not None and self._bg_out[0] == (epoch, step):
-                rec = self._bg_out[1]
-            self._bg_out = None
-        if rec is None:
-            rec = self._read_batch(epoch, step)
-        if self.prefetch:
-            ns, ne = step + 1, epoch
-            if ns >= self.steps_per_epoch:
-                ns, ne = 0, epoch + 1
-            self._ensure_worker()
-            self._bg_done.clear()
-            self._bg_pending = True
-            self._bg_req.put((ne, ns))
+        with span("data: load", epoch=epoch, step=step):
+            rec = None
+            if self._bg_pending:
+                self._bg_done.wait()
+                self._bg_pending = False
+                if self._bg_out is not None and self._bg_out[0] == (epoch, step):
+                    rec = self._bg_out[1]
+                self._bg_out = None
+            if rec is None:
+                rec = self._read_batch(epoch, step)
+            if self.prefetch:
+                ns, ne = step + 1, epoch
+                if ns >= self.steps_per_epoch:
+                    ns, ne = 0, epoch + 1
+                self._ensure_worker()
+                self._bg_done.clear()
+                self._bg_pending = True
+                self._bg_req.put((ne, ns))
         return {"tokens": rec[:, :-1], "labels": rec[:, 1:]}
 
     def _ensure_worker(self) -> None:

@@ -32,6 +32,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.spans import span
+
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import mamba2_scan as _mamba2
@@ -128,8 +130,9 @@ def _vjp(name: str, plain: Callable, saved: Sequence[Optional[torch.Tensor]],
     """Gradients of ``plain`` at ``saved`` against the output gradients
     ``grads``, by autograd through ``plain``; None where ``needs`` is false
     or the input was None.  Callers pass ``ctx.saved_tensors`` read once:
-    under a checkpoint its unpack hooks refuse a second read."""
-    with torch.profiler.record_function(f"plain backward: {name}"), torch.enable_grad():
+    under a checkpoint its unpack hooks refuse a second read.  It runs in a
+    ``plain backward: <name>`` span, a profiler range while one records."""
+    with span(f"plain backward: {name}"), torch.enable_grad():
         xs = [None if t is None else t.detach().requires_grad_(need)
               for t, need in zip(saved, needs)]
         wrt = [x for x in xs if x is not None and x.requires_grad]

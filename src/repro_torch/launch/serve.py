@@ -14,8 +14,9 @@ n_audio_ctx, d_model) in place of the audio conv stem.  On
 the CPU the SSM archs follow the reference's chunked scans, which need the
 prompt to be a multiple of the chunk (128 for Mamba2, 64 for RWKV6) or
 shorter than it; the CUDA kernels take any prompt length.  Prints the warm
-generate time and tok/s, the launch counts, then prefill ms and decode ms
-per step.
+generate time and tok/s, the launch counts, then the warm run's prefill ms
+and its median decode ms per step, from its spans on the host's clock and
+the device's.
 
 Runs on the card unless ``--device cpu`` is given; with no card and no
 ``--device cpu`` it raises.  Weights are random, from a seeded
@@ -34,15 +35,16 @@ prompts, the weights replicated, the prompts' rows split over the ranks
 from __future__ import annotations
 
 import argparse
-import time
+import statistics
 
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import gather, launch_mesh, mesh_context, replicate, shard_batch
-from repro_torch.launch.steps import make_generate_loop, make_prefill_step
+from repro_torch.launch.steps import make_generate_loop
 from repro_torch.models import build_model
+from repro_torch.spans import records, span
 
 
 N_IMG = 8  # visual embeddings a prompt for visual_stub configs, as the reference's serve.py
@@ -103,18 +105,17 @@ def _serve(args, dev: torch.device, mesh) -> None:
         params, batch = replicate(params, mesh), shard_batch(batch, mesh)
     generate = make_generate_loop(model, args.gen)
     max_len = args.prompt_len + args.gen + 1
-    t0 = time.perf_counter()
-    toks = generate(params, batch, max_len)
-    _sync(dev)
-    t_first = time.perf_counter() - t0
+    with span("serve: generate") as first:
+        toks = generate(params, batch, max_len)
+        _sync(dev)
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    toks = gather(generate(params, batch, max_len))
-    _sync(dev)
-    t_warm = time.perf_counter() - t0
+    with span("serve: generate") as warm:
+        toks = gather(generate(params, batch, max_len))
+        _sync(dev)
+    t_warm = warm.seconds
     tput = args.batch * args.gen / t_warm
     say(f"[serve] generated {tuple(toks.shape)} tokens; "
-          f"first(incl build)={t_first:.2f}s warm={t_warm*1e3:.0f}ms "
+          f"first(incl build)={first.seconds:.2f}s warm={t_warm*1e3:.0f}ms "
           f"({tput:.0f} tok/s)")
     if cfg.visual_stub:
         say(f"[serve] visual embeddings {tuple(batch['visual_embeds'].shape)} over the "
@@ -124,16 +125,27 @@ def _serve(args, dev: torch.device, mesh) -> None:
               f"encoder")
     say("[serve] sample:", toks[0, :12].tolist())
     say("[serve] kernel launches (warm run):", ops.launch_counts())
-    prefill = make_prefill_step(model, max_len)
-    t_prefill = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        prefill(params, batch)
-        _sync(dev)
-        t_prefill.append(time.perf_counter() - t0)
-    pf = min(t_prefill)
-    say(f"[serve] prefill {pf*1e3:.2f} ms (min of 3), "
-          f"decode {(t_warm - pf)*1e3/args.gen:.3f} ms/step (warm generate less prefill)")
+    say(_phases(warm))
+
+
+def _phases(call) -> str:
+    """The warm run's ``serve: prefill`` span, its decode steps' median on
+    the host's clock and their mean on the device's (the ``serve: decode``
+    span over its steps)."""
+    mine = [sp for sp in records() if sp.root == call.id]
+    pf = next(sp for sp in mine if sp.name == "serve: prefill")
+    steps = [sp for sp in mine if sp.name == "serve: decode step"]
+    host = statistics.median(sp.host_ms for sp in steps) if steps else None
+    loop = next((sp for sp in mine if sp.name == "serve: decode"), None)
+    dev = None if loop is None or loop.device_ms is None or not steps \
+        else loop.device_ms / len(steps)
+    return (f"[serve] prefill {_ms(pf.host_ms)} host / {_ms(pf.device_ms)} device, "
+            f"decode {_ms(host)}/step host (median) / {_ms(dev)}/step device (mean) "
+            f"(the warm run's spans, {len(steps)} steps)")
+
+
+def _ms(value) -> str:
+    return "not read" if value is None else f"{value:.3f} ms"
 
 
 def _quiet(*args, **kwargs) -> None:

@@ -10,6 +10,7 @@ import torch
 from repro_torch.models.api import Model
 from repro_torch.models.common import active_mesh, is_dtensor
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.spans import span
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -36,7 +37,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
     AdamW then writes the new values into the state's buffers.  A leaf the
     loss never reads (the plain GELU MLP's ``wg``) gets a zero gradient, as
     in the reference.  The metrics are 0-d tensors on the params' device;
-    nothing waits for the device.
+    nothing waits for the device.  The three phases are the spans
+    ``train: forward``, ``train: backward`` (the parent of every span the
+    backward opens, on any thread) and ``train: optimizer``, each also on
+    the device's clock.
 
     Over a mesh (DTensor params, inside ``mesh_context``) each gradient is
     brought to its param's placements before the update: a replicated
@@ -44,15 +48,20 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
     all-reduced once, so every rank applies the same update.
     """
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
-        with torch.enable_grad():
-            loss = model.loss(params, batch)
-            grads = tree_unflatten(params, torch.autograd.grad(
-                loss, tree_leaves(params), allow_unused=True, materialize_grads=True))
-        grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
-                         if is_dtensor(g) else g, grads, params)
-        new_params, new_opt, metrics = adamw_update(opt_cfg, state["params"], grads,
-                                                    state["opt"])
+        dev = tree_leaves(state["params"])[0].device
+        with span("train: forward", device=dev):
+            params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
+            with torch.enable_grad():
+                loss = model.loss(params, batch)
+        with span("train: backward", device=dev, home=True):
+            with torch.enable_grad():
+                grads = tree_unflatten(params, torch.autograd.grad(
+                    loss, tree_leaves(params), allow_unused=True, materialize_grads=True))
+            grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                             if is_dtensor(g) else g, grads, params)
+        with span("train: optimizer", device=dev):
+            new_params, new_opt, metrics = adamw_update(opt_cfg, state["params"], grads,
+                                                        state["opt"])
         metrics = dict(metrics, loss=loss.detach())
         return {"params": new_params, "opt": new_opt}, metrics
 
@@ -66,8 +75,10 @@ def _serving_mode():
 
 
 def make_prefill_step(model: Model, max_len: int):
+    """``prefill_step(params, batch) -> (logits, cache)``, in a
+    ``serve: prefill`` span."""
     def prefill_step(params, batch):
-        with _serving_mode():
+        with span("serve: prefill", device=batch["tokens"].device), _serving_mode():
             return model.prefill(params, batch, max_len)
 
     return prefill_step
@@ -85,21 +96,29 @@ def make_generate_loop(model: Model, steps: int):
     """Greedy generation: prefill, then ``steps`` decode steps.
 
     ``generate(params, batch, max_len)`` returns the (B, steps) tokens.
-    ``argmax`` takes the first maximum, as the reference's does.
+    ``argmax`` takes the first maximum, as the reference's does.  The
+    prefill with its first token is a ``serve: prefill`` span, the decode
+    steps together a ``serve: decode`` span, both also on the device's
+    clock, and each decode step a ``serve: decode step`` span (attribute
+    ``step``) on the host's; the caller's span around the call groups them.
     """
     V = model.cfg.vocab_size
 
     def generate(params, batch, max_len):
+        dev = batch["tokens"].device
         with _serving_mode():
-            logits, cache = model.prefill(params, batch, max_len)
-            B, S = batch["tokens"].shape
-            tok = logits[:, :V].argmax(-1)
-            toks = []
-            for t in range(steps):
-                pos = torch.full((B,), S + t, dtype=torch.int32, device=tok.device)
-                logits, cache = model.decode_step(params, cache, tok, pos)
+            with span("serve: prefill", device=dev):
+                logits, cache = model.prefill(params, batch, max_len)
+                B, S = batch["tokens"].shape
                 tok = logits[:, :V].argmax(-1)
-                toks.append(tok)
+            toks = []
+            with span("serve: decode", device=dev, steps=steps):
+                for t in range(steps):
+                    with span("serve: decode step", step=t):
+                        pos = torch.full((B,), S + t, dtype=torch.int32, device=tok.device)
+                        logits, cache = model.decode_step(params, cache, tok, pos)
+                        tok = logits[:, :V].argmax(-1)
+                    toks.append(tok)
             return torch.stack(toks, dim=1)
 
     return generate

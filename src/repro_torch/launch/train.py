@@ -149,6 +149,9 @@ def _train(args, dev) -> None:
           f"stragglers {out['stragglers']}  "
           f"ckpt[{mode}] {out['ckpt_saves']} saves, "
           f"{out['ckpt_wait_s']:.2f}s stalled")
+    print("[train] phases, median ms host / device: " + ", ".join(
+        f"{name} {ms['host']:.1f}" + (f" / {ms['device']:.1f}" if "device" in ms else "")
+        for name, ms in out["phase_ms"].items()))
     loader.close()
     ckpt.close()
     fa.shutdown()

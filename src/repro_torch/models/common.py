@@ -234,9 +234,27 @@ def remat(fn, *args, **kwargs):
     backward on its own device thread, where the caller's ``contextvars``
     are not set, so the recompute would apply no constraint and read the
     default profile; ``fn`` runs under a copy of the forward's context
-    both times."""
+    both times, the second with :func:`recomputing` true."""
     ctx = copy_context()
-    return checkpoint(lambda *a: ctx.copy().run(fn, *a), *args, **kwargs)
+    ran = []
+
+    def run(*a):
+        run_ctx = ctx.copy()
+        if ran:
+            run_ctx.run(_RECOMPUTING.set, True)
+        ran.append(True)
+        return run_ctx.run(fn, *a)
+
+    return checkpoint(run, *args, **kwargs)
+
+
+_RECOMPUTING: ContextVar[bool] = ContextVar("repro_torch_recomputing", default=False)
+
+
+def recomputing() -> bool:
+    """True inside a :func:`remat` recompute (the backward pass running a
+    checkpointed region's forward again)."""
+    return _RECOMPUTING.get()
 
 
 def chunked_softmax_xent(cfg: ModelConfig, emb: Dict[str, torch.Tensor],

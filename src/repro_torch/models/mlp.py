@@ -26,8 +26,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
+
 from .common import (_dp_axes, act_fn, constrain_dims, constrain_hidden, dense_init,
-                     get_sharding_profile, is_dtensor)
+                     get_sharding_profile, is_dtensor, recomputing)
 from .config import ModelConfig
 
 Tensors = Dict[str, torch.Tensor]
@@ -177,6 +179,10 @@ def _moe_capacity(cfg: ModelConfig, p: Tensors, x: torch.Tensor, cf: float,
     C = max(1, int(T * m.top_k * cf / E))
     gate_w, gate_i, aux = _route(cfg, p, x)
     pos, keep = _slots(gate_i, E, C)
+    if spans.profiling() and not recomputing():
+        # a device reduction, so only while a profiler records; once a step
+        spans.count("moe: assignments", keep.numel())
+        spans.count("moe: dropped", (~keep).sum())
     group = torch.arange(G, device=x.device)[:, None, None]
     # rows of the (E, G, C) buffers; a dropped assignment points past the end
     slot = torch.where(keep, (gate_i * G + group) * C + pos, E * G * C).reshape(G * T, -1)

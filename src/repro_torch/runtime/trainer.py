@@ -26,7 +26,13 @@ package's ``runtime/trainer.py``.
   inside a step can leave a state that is part old, part new; the
   emergency save then writes that state under the last finished step;
 * restore copies into the buffers of a freshly made state, so the state is
-  never held twice on the card.
+  never held twice on the card;
+* the loop times itself with ``spans``: each step is a ``train: step`` span
+  around ``data: load``, ``train: to_device``, the step function's three
+  phases and ``train: sync`` (the host waiting for the step's device work);
+  the checkpoint calls are ``checkpoint: save`` / ``wait`` / ``restore``
+  spans, whose host times add up to ``ckpt_wait_s`` and ``restore_s``; the
+  fit() summary's ``phase_ms`` holds each phase's median.
 
 The trainer runs over a ``DeviceMesh`` (the reference's ``mesh``
 argument) or, given a device or None, on one device without a mesh.  Over a
@@ -44,7 +50,6 @@ PyTorch (``make_train_step``), where the reference jits and donates.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
@@ -58,6 +63,7 @@ from repro_torch.launch.steps import make_train_state, make_train_step
 from repro_torch.models.api import Model
 from repro_torch.models.common import get_sharding_profile, is_dtensor
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.spans import records, span
 from repro_torch.tree import tree_map
 
 
@@ -144,17 +150,18 @@ class Trainer:
         if self.mesh is not None:
             state = replicate(state, self.mesh)
         if self.ckpt is not None and self.tcfg.restore:
-            t0 = time.perf_counter()
-            out = self.ckpt.restore_latest(like=state)
+            with span("checkpoint: restore") as restoring:
+                out = self.ckpt.restore_latest(like=state)
+                if out is not None:
+                    ckpt_step, tree, extra = out
+                    # every rank reads the whole tree into its replica
+                    tree_map(lambda dst, src: (dst.to_local() if is_dtensor(dst) else dst)
+                             .copy_(src), state, tree)
+                    del tree
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
             if out is not None:
-                ckpt_step, tree, extra = out
-                # every rank reads the whole tree into its replica
-                tree_map(lambda dst, src: (dst.to_local() if is_dtensor(dst) else dst)
-                         .copy_(src), state, tree)
-                del tree
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                self.restore_s = time.perf_counter() - t0
+                self.restore_s = restoring.seconds
                 start_epoch = int(extra.get("epoch", 0))
                 start_step = int(extra.get("step", ckpt_step))
                 print(f"[trainer] restored step {ckpt_step} "
@@ -188,21 +195,25 @@ class Trainer:
         ema = None
         losses = []
         global_step = step0
+        first = None  # the id of the first step's span
         try:
             while global_step < self.tcfg.steps:
                 e, s = divmod(global_step, spe)
-                batch = self.loader.load(e, s)
-                if self.batch_extras is not None:
-                    batch = self.batch_extras(batch)
-                batch = self._to_device(batch)
-                if self.mesh is not None:
-                    batch = shard_batch(batch, self.mesh)
-                t0 = time.perf_counter()
-                state, metrics = step_fn(state, batch)
-                metrics = {k: v.full_tensor() if is_dtensor(v) else v
-                           for k, v in metrics.items()}
-                loss = float(metrics["loss"])
-                dt = time.perf_counter() - t0
+                with span("train: step", step=global_step) as root:
+                    first = root.id if first is None else first
+                    batch = self.loader.load(e, s)
+                    if self.batch_extras is not None:
+                        batch = self.batch_extras(batch)
+                    with span("train: to_device") as moved:
+                        batch = self._to_device(batch)
+                        if self.mesh is not None:
+                            batch = shard_batch(batch, self.mesh)
+                    state, metrics = step_fn(state, batch)
+                    with span("train: sync") as synced:
+                        metrics = {k: v.full_tensor() if is_dtensor(v) else v
+                                   for k, v in metrics.items()}
+                        loss = float(metrics["loss"])
+                dt = (synced.t1 - moved.t1) / 1e9  # the step and its sync
                 in_flight = self.ckpt is not None and self.ckpt.save_in_flight()
                 straggler = ema is not None and dt > self.tcfg.straggler_factor * ema
                 ema = dt if ema is None else 0.9 * ema + 0.1 * dt
@@ -220,36 +231,39 @@ class Trainer:
                         and global_step % self.tcfg.ckpt_every == 0:
                     e2, s2 = divmod(global_step, spe)
                     extra = {"epoch": e2, "step": global_step}
-                    t0 = time.perf_counter()
                     delta = self._next_delta()
-                    if self.tcfg.write_behind:
-                        # blocks only while a previous save is still in
-                        # flight; the write graph runs behind compute
-                        self.ckpt.save_async(global_step, state,
-                                             extra=extra, delta=delta)
-                    else:
-                        self.ckpt.save(global_step, state, extra=extra,
-                                       delta=delta)
-                    self.ckpt_wait_s += time.perf_counter() - t0
+                    with span("checkpoint: save", step=global_step, delta=delta) as saving:
+                        if self.tcfg.write_behind:
+                            # blocks only while a previous save is still in
+                            # flight; the write graph runs behind compute
+                            self.ckpt.save_async(global_step, state,
+                                                 extra=extra, delta=delta)
+                        else:
+                            self.ckpt.save(global_step, state, extra=extra,
+                                           delta=delta)
+                    self.ckpt_wait_s += saving.seconds
                     self.ckpt_saves += 1
         except BaseException:
             if self.ckpt is not None:
                 try:  # emergency checkpoint of the last good state
-                    self.ckpt.wait_pending()
-                    self.ckpt.save(global_step, state,
-                                   extra={"epoch": epoch, "step": global_step,
-                                          "emergency": True})
+                    with span("checkpoint: wait"):
+                        self.ckpt.wait_pending()
+                    with span("checkpoint: save", step=global_step, emergency=True):
+                        self.ckpt.save(global_step, state,
+                                       extra={"epoch": epoch, "step": global_step,
+                                              "emergency": True})
                     print(f"[trainer] emergency checkpoint at step {global_step}")
                 except BaseException as e2:
                     print(f"[trainer] emergency save failed: {e2!r}")
             raise
         if self.ckpt is not None:
-            t0 = time.perf_counter()
-            self.ckpt.wait_pending()
-            self.ckpt.save(global_step, state,
-                           extra={"epoch": epoch, "step": global_step},
-                           delta=self._next_delta())
-            self.ckpt_wait_s += time.perf_counter() - t0
+            with span("checkpoint: wait") as waiting:
+                self.ckpt.wait_pending()
+            delta = self._next_delta()
+            with span("checkpoint: save", step=global_step, delta=delta) as saving:
+                self.ckpt.save(global_step, state,
+                               extra={"epoch": epoch, "step": global_step}, delta=delta)
+            self.ckpt_wait_s += waiting.seconds + saving.seconds
             self.ckpt_saves += 1
         return {
             "state": state,
@@ -260,4 +274,27 @@ class Trainer:
             "ckpt_saves": self.ckpt_saves,
             "mean_step_s": float(np.mean([ev.seconds for ev in self.events[1:]]))
             if len(self.events) > 1 else None,
+            "phase_ms": phase_ms(first),
         }
+
+
+def phase_ms(first: Optional[int]) -> Dict[str, Dict[str, float]]:
+    """The median host ms of each ``train:`` and ``data:`` span of the steps
+    from the step span ``first`` on (those the spans' ring still holds),
+    and its median device ms where the device's clock timed it."""
+    if first is None:
+        return {}
+    host: Dict[str, List[float]] = {}
+    device: Dict[str, List[float]] = {}
+    for sp in records():
+        if sp.root >= first and sp.name.startswith(("train:", "data:")):
+            host.setdefault(sp.name, []).append(sp.host_ms)
+            ms = sp.device_ms
+            if ms is not None:
+                device.setdefault(sp.name, []).append(ms)
+    out = {}
+    for name, values in host.items():
+        out[name] = {"host": float(np.median(values))}
+        if name in device:
+            out[name]["device"] = float(np.median(device[name]))
+    return out
