@@ -54,6 +54,18 @@ Phases, each of which raises on failure (nothing is caught):
              reject; readings of each bf16 state with its decayed operand
              (Mamba2's B~, RWKV6's k~) rounded to one bf16 part; CTAs an SM
              of both bf16 kernels; timings of kernel and plain version.
+4b. flash bwd — the attention backward's two bf16 kernels
+             (``flash_attention_bwd``, with the forward's LSE; the
+             build's spill check for them: each instance reported, none
+             spilling) at granite's, qwen2-vl's (D = 128) and whisper's
+             cross train shapes, the tiles' edges, rows without a key and a V with a
+             large common part: against their plain version (2e-2 of each
+             gradient's rms, and rtol) and an fp32 reference (relative
+             error at most 1.1 x the plain bf16 backward's and 1e-2); two
+             runs the same bits; the forward with the LSE the same bits as
+             without it; a reference whose dk and dv drop the causal mask
+             rejected; times of the kernels, their bound, the plain
+             version, the plain bf16 backward and SDPA's backward.
 5. main    — ten paths, each full width in bf16 with random weights from
              a seed, serving batch 8 and 64 greedy tokens through
              ``make_generate_loop``: tinyllama-1.1b (prompt 1000),
@@ -106,8 +118,9 @@ Phases, each of which raises on failure (nothing is caught):
              repeated batch (step ms, tok/s, peak memory within 85% of the
              card; the loss must be finite and fall, the MoE path prints
              its aux loss beside the xent; launches a step
-             against the count the config gives), profiles one step (the device time of each plain
-             backward), holds a ``dots`` step's loss and grads against
+             against the count the config gives, attention's backward
+             kernels where its route takes them), profiles one step (the
+             device time of each plain backward), holds a ``dots`` step's loss and grads against
              remat off (bit for bit, or within twice the spread of two
              ``dots`` runs), then takes one step from that state on the kernel
              path, the plain path, the plain path in the kernels'
@@ -528,12 +541,13 @@ def _ptxas_entries(out):
     """{kernel: [registers, spill store bytes, spill load bytes]} from what
     ``ptxas -v`` printed.  A kernel is its mangled name from its own name
     on (after the anonymous namespace's ``_cu_<hash><length>``), with its
-    integer template arguments written out: ``fa_fwd_bf16<64, 2>``."""
+    integer and bool template arguments written out (a bool as 0 or 1):
+    ``fa_fwd_bf16<64, 2, 0>``."""
     entries, kernel = {}, None
     for line in out.splitlines():
         if "Compiling entry function" in line:
             name = re.sub(r"^.*?_cu_[0-9a-f]{8}\d+", "", line.split("'")[1])
-            args = re.match(r"(\w+?)I((?:Li\d+E)+)E", name)
+            args = re.match(r"(\w+?)I((?:L[ib]\d+E)+)E", name)
             kernel = f"{args[1]}<{', '.join(re.findall(r'\d+', args[2]))}>" if args else name
             entries[kernel] = [None, 0, 0]
         elif kernel and (m := re.search(r"Used (\d+) registers", line)):
@@ -899,6 +913,205 @@ def _decode_controls(torch, dec, q, k, v, ln, got):
 SCAN_TOL = {"mamba2": 1e-4, "rwkv6": 5e-5, "rwkv6_naive": 2e-3, "bfloat16": 2e-2}
 SCAN_SERVE = {"mamba2": (BATCH, 1024, 64, 64, 1, 64),   # B, S, H, P, G, N (zamba2-1.2b)
               "rwkv6": (BATCH, 1024, 64, 64)}          # B, S, H, K = V (rwkv6-7b)
+
+
+# The attention backward's cases: (label, B, H, KV, S, T, D, causal, V's
+# common part); the first three are the main paths' train shapes, the rest
+# the tiles' edges and a V with a large common part, as a bias gives it
+FLASH_BWD_CASES = (
+    ("granite-moe-3b-a800m train", 8, 24, 8, 1024, 1024, 64, True, 0.0),
+    ("qwen2-vl-7b train (D = 128)", 8, 28, 4, 1024, 1024, 128, True, 0.0),
+    ("whisper-tiny cross (full, S = 383 vs T = 1500)", 8, 6, 6, 383, 1500, 64, False, 0.0),
+    ("ragged S = T = 129", 2, 4, 2, 129, 129, 64, True, 0.0),
+    ("S = 100 vs T = 300", 1, 6, 2, 100, 300, 64, True, 0.0),
+    ("S = 300 vs T = 130, rows without a key (D = 128)", 1, 6, 2, 300, 130, 128, True, 0.0),
+    ("S = 1 vs T = 65", 2, 4, 4, 1, 65, 64, True, 0.0),
+    ("full GQA 3, S = T = 200 (D = 128)", 1, 3, 1, 200, 200, 128, False, 0.0),
+    ("whisper-tiny encoder, V = 3 + 0.05 noise", 8, 6, 6, 1500, 1500, 64, False, 3.0),
+)
+FLASH_BWD_TOL = 2e-2  # kernel vs its plain version: rtol, and atol in units of the rms
+FLASH_BWD_RATIO = 1.1  # the kernel's error to fp32 against the plain bf16 backward's
+FLASH_BWD_FP32 = 1e-2  # and that error itself, relative, at most
+
+
+def attention_bwd_f32(torch, q, k, v, do, causal, mask_dkdv=True):
+    """dq, dk, dv of attention_f32's function against ``do``, in fp32 with
+    explicit formulas, none of the port's code: P = softmax of the scaled
+    scores, dS = P o (dO V^T - rowsum(dO o O)).  A row that sees no key
+    has zero gradients.  ``mask_dkdv`` False plants a fault: dk and dv from
+    P and dS without the causal mask."""
+    q, k, v, do = q.float(), k.float(), v.float(), do.float()
+    B, H, S, D = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    G = H // KV
+    kr, vr = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(T, device=q.device)[None, :]
+    vis = j <= i + T - S if causal else torch.ones((S, T), dtype=torch.bool, device=q.device)
+    s = q @ kr.transpose(-1, -2) * D ** -0.5
+
+    def grads(vis):
+        seen = vis.any(-1)[:, None]
+        p = torch.softmax(s.masked_fill(~vis, -math.inf), dim=-1).nan_to_num(0.0)
+        dp = do @ vr.transpose(-1, -2)
+        o = p @ vr
+        ds = p * (dp - (do * o).sum(-1, keepdim=True)) * seen
+        return ds, p * seen
+
+    ds, p = grads(vis)
+    dq = D ** -0.5 * ds @ kr
+    if not mask_dkdv:
+        ds, p = grads(torch.ones_like(vis))
+    dk = (D ** -0.5 * ds.transpose(-1, -2) @ q).view(B, KV, G, T, D).sum(2)
+    dv = (p.transpose(-1, -2) @ do).view(B, KV, G, T, D).sum(2)
+    return dq, dk, dv
+
+
+def _relnorm(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def phase_flash_bwd(torch):
+    """The attention backward's kernels (``fa_bwd_dq_bf16``,
+    ``fa_bwd_dkdv_bf16``) against their plain version and against an fp32
+    reference, at the cases of FLASH_BWD_CASES: within FLASH_BWD_TOL of the
+    plain version element by element; each gradient's relative error to
+    fp32 at most FLASH_BWD_RATIO times the plain bf16 backward's (autograd
+    through ``ref.attention_blockwise``, the route the kernels replace);
+    and at most FLASH_BWD_FP32; the forward with the LSE the same bits as
+    without it, its LSE against
+    the plain version's; two runs the same bits; a reference with the
+    causal mask dropped from dk and dv rejected.  Rows that see no key take
+    no output gradient in the comparisons, and must get zero dq and add
+    nothing to dk and dv when they do.  Times (CUDA events, inputs beyond
+    L2) of the kernels, the plain version, the plain bf16 backward and
+    SDPA's backward (a yardstick the port never calls) beside the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    # the build's spill check, for these kernels: each instance reported by
+    # ptxas (as phase_build reads it), none spilling
+    build.build_all()
+    bwd = {k: v for k, v in _ptxas_entries(build.ptxas_log["flash_attention"]).items()
+           if k.startswith("fa_bwd_")}
+    want = {"fa_bwd_dq_bf16<64>", "fa_bwd_dq_bf16<128>", "fa_bwd_dkdv_bf16<64, 64>",
+            "fa_bwd_dkdv_bf16<128, 32>"}
+    if set(bwd) != want:
+        raise AssertionError(f"[flash bwd] ptxas reported {sorted(bwd)}, not {sorted(want)}")
+    spilled = {k: v for k, v in bwd.items() if v[1] or v[2]}
+    if spilled:
+        raise AssertionError(f"[flash bwd] the attention backward's kernels spill: {spilled}")
+    log(f"[flash bwd] registers (none spills): {({k: v[0] for k, v in sorted(bwd.items())})}")
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+    shapes = {}
+    for label, B, H, KV, S, T, D, causal, v_common in FLASH_BWD_CASES:
+        q, k, v = _prefill_inputs(torch, gen, B, H, KV, S, T, D, bf)
+        if v_common:
+            v = (v.float() * 0.05 + v_common).to(bf)
+        do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(bf).transpose(1, 2)
+        seen = (torch.arange(S, device="cuda") + (T - S) >= 0) if causal else \
+            torch.ones(S, dtype=torch.bool, device="cuda")
+        do_seen = do * seen[:, None]
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, with_lse=True)
+        if not torch.equal(o, fa.flash_attention_fwd(q, k, v, causal)):
+            raise AssertionError(f"{label}: the forward with the LSE differs from without")
+        lse_err, lse_bad, _ = beyond(lse[..., seen], fa.attention_lse_plain(q, k, causal)[..., seen],
+                                     1e-4, 1e-4)
+        if lse_bad or not torch.all(lse[..., ~seen] == math.inf):
+            raise AssertionError(f"{label}: LSE off its plain version by {lse_err:.3e}")
+        before = fa.launches_bwd
+        got = fa.flash_attention_bwd(q, k, v, lse, do_seen, causal)
+        torch.cuda.synchronize()
+        if fa.launches_bwd != before + 2:
+            raise AssertionError(f"{label}: the backward did not count two launches")
+        again = fa.flash_attention_bwd(q, k, v, lse, do_seen, causal)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not bitwise:
+            raise AssertionError(f"{label}: two runs of the backward differ")
+        plain = fa.flash_attention_bwd_plain(q, k, v, lse, do_seen, causal)
+        ref32 = attention_bwd_f32(torch, q, k, v, do_seen, causal)
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            blockwise = torch.autograd.grad(ref.attention_blockwise(*xs, causal), xs, do_seen)
+        row = {"shape": f"B={B} H={H} KV={KV} S={S} T={T} D={D} "
+                        f"{'causal' if causal else 'full'} bf16"}
+        for name, g, w, r32, bw in zip(("dq", "dk", "dv"), got, plain, ref32, blockwise):
+            tol = FLASH_BWD_TOL * float(w.float().pow(2).mean().sqrt())
+            err, bad, share = beyond(g, w, tol, FLASH_BWD_TOL)
+            e_k, e_b = _relnorm(g, r32), _relnorm(bw, r32)
+            log(f"[flash bwd] {label} {name}: vs plain max_abs_err={err:.3e} (uses "
+                f"{100 * share:.0f}% of the limit); relative error to fp32: kernel {e_k:.3e}, "
+                f"plain bf16 backward {e_b:.3e}, plain version {_relnorm(w, r32):.3e}")
+            if bad:
+                raise AssertionError(f"{label} {name}: {bad} elements off the plain version")
+            if e_k > FLASH_BWD_RATIO * e_b or e_k > FLASH_BWD_FP32:
+                raise AssertionError(f"{label} {name}: relative error to fp32 {e_k:.3e} above "
+                                     f"{FLASH_BWD_RATIO} x the plain bf16 backward's {e_b:.3e} "
+                                     f"or {FLASH_BWD_FP32}")
+            row[name] = {"max_abs_err_vs_plain": err, "limit_share": share,
+                         "rel_err_vs_fp32": e_k, "plain_bf16_rel_err_vs_fp32": e_b}
+        if causal and S > 1:  # the control (the mask hides a key): dk and dv without it
+            _, fk, fv = attention_bwd_f32(torch, q, k, v, do_seen, causal, mask_dkdv=False)
+            caught = {}
+            for name, g, w, f in (("dk", got[1], plain[1], fk), ("dv", got[2], plain[2], fv)):
+                tol = FLASH_BWD_TOL * float(w.float().pow(2).mean().sqrt())
+                caught[name] = beyond(g, f, tol, FLASH_BWD_TOL)[1]
+            log(f"[flash bwd] control, {label}: a backward whose dk and dv drop the causal "
+                f"mask: {caught} elements beyond the limit")
+            if not all(caught.values()):
+                raise AssertionError(f"{label}: the dropped causal mask is not rejected")
+            row["control_beyond"] = caught
+        if not bool(seen.all()):
+            blind = fa.flash_attention_bwd(q, k, v, lse, do, causal)
+            if not (torch.all(blind[0][..., ~seen, :] == 0) and torch.equal(blind[1], got[1])
+                    and torch.equal(blind[2], got[2])):
+                raise AssertionError(f"{label}: rows without a key change the gradients")
+            row["rows_without_a_key"] = int((~seen).sum())
+        if label in [c[0] for c in FLASH_BWD_CASES[:3]]:
+            pairs = S * (S + 1) / 2 + (T - S) * S if causal else S * T
+            nbytes = 2 * (4 * B * H * S * D + 4 * B * KV * T * D) + 8 * B * H * S
+            t_bound, by = bound(10 * B * H * pairs * D, nbytes, H100.peak_flops)
+            args = copies_beyond_l2(lambda: (q.clone(), k.clone(), v.clone(), lse.clone(),
+                                             do.clone(), causal), nbytes)
+            ms = time_ms(torch, fa.flash_attention_bwd, args)
+            row["plain_ms"] = time_ms(torch, fa.flash_attention_bwd_plain, args[:1], iters=5)
+
+            def blockwise_bwd(q, k, v, lse, do, causal):
+                xs = [t.detach().requires_grad_() for t in (q, k, v)]
+                with torch.enable_grad():
+                    return torch.autograd.grad(ref.attention_blockwise(*xs, causal), xs, do)
+
+            row["plain_bf16_backward_ms"] = time_ms(torch, blockwise_bwd, args[:1], iters=5)
+
+            def sdpa_bwd(q, k, v, lse, do, causal):
+                xs = [t.detach().requires_grad_() for t in (q, k, v)]
+                with torch.enable_grad():
+                    out = F.scaled_dot_product_attention(*xs, is_causal=causal, enable_gqa=True)
+                    return torch.autograd.grad(out, xs, do)
+
+            lib_fwd_bwd = time_ms(torch, sdpa_bwd, args)
+            lib_fwd = time_ms(torch, lambda q, k, v, lse, do, causal:
+                              F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                             enable_gqa=True), args)
+            row.update(kernel_ms=ms, bound_ms=t_bound, bound_by=by,
+                       share=t_bound / ms, library_ms=lib_fwd_bwd - lib_fwd)
+            log(f"[flash bwd] {label}: kernels {ms:.4f} ms ({100 * t_bound / ms:.1f}% of the "
+                f"bound {t_bound:.4f} ms, {by}); plain version {row['plain_ms']:.4f} ms, plain "
+                f"bf16 backward {row['plain_bf16_backward_ms']:.4f} ms, SDPA backward "
+                f"{row['library_ms']:.4f} ms (its forward and backward less its forward)")
+            del args
+        shapes[label] = row
+        del q, k, v, do, do_seen, o, lse, got, again, plain, ref32, blockwise
+        torch.cuda.empty_cache()
+    main = shapes[FLASH_BWD_CASES[0][0]]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu", "replaces": None,
+            "kernel_ms": main["kernel_ms"], "bound_ms": main["bound_ms"],
+            "tol": FLASH_BWD_TOL, "ratio_to_plain_bf16": FLASH_BWD_RATIO, "shapes": shapes}
 
 
 def _mamba_inputs(torch, gen, B, S, H, P, G, N, dtype, h0=False, offset=None):
@@ -2025,8 +2238,8 @@ def _moe_split(prof, cfg, plain_bwd):
     products (``bmm`` batched over the E experts), the dispatch and combine
     (the gathers and their ``index_add_`` backward, the slot table's
     ``scatter_``, the combine's weighted sum: ``bmm`` with a unit dimension)
-    and attention (the flash and decode kernels and ops' plain attention
-    backward).  On an MLA path also the MLA blocks whole (projections,
+    and attention (the flash and decode kernels, the flash backward's
+    kernels and ops' plain attention backward).  On an MLA path also the MLA blocks whole (projections,
     latent attention, the flash kernel: the "mla" ranges of
     ``_ranges``), attention among them.  Routing, norms, the other
     projections and the head are the rest."""
@@ -2039,7 +2252,8 @@ def _moe_split(prof, cfg, plain_bwd):
             if e.device_type == DeviceType.CPU and e.key == "mla") / 1e3
     for e in prof.key_averages(group_by_input_shape=True):
         if e.device_type != DeviceType.CPU:
-            if re.search(r"\b(fa_fwd|decode)_(bf16|f32)\b", e.key):  # the ctypes-launched kernels
+            # the ctypes-launched kernels
+            if re.search(r"\b((fa_fwd|decode)_(bf16|f32)|fa_bwd_(dq|dkdv)_bf16)\b", e.key):
                 parts["attention"] += e.self_device_time_total / 1e3
             continue
         shape = e.input_shapes[0] if e.input_shapes else []
@@ -2182,13 +2396,25 @@ def _train_config(arch, layers):
 
 def _expected_train_launches(cfg):
     """Kernel launches in one train step: each layer's forward, and again
-    in its recomputation under remat; the backward is plain torch.  The
-    encoder-decoder's encoder layers run outside remat, once."""
+    in its recomputation under remat; attention's backward, two kernels
+    each, where its route is the kernels' (bf16 at head_dim 64 or 128),
+    the other backwards plain torch.  The encoder-decoder's encoder layers
+    run outside remat, once."""
+    import torch
+    from repro_torch.kernels import ops
+
     per = 2 if cfg.remat else 1
     if cfg.enc_dec is not None:
-        return dict(_expected_launches(cfg), flash_decode=0,
+        want = dict(_expected_launches(cfg), flash_decode=0,
                     flash_attention_fwd=cfg.enc_dec.n_enc_layers + per * 2 * cfg.n_layers)
-    return {k: 0 if k == "flash_decode" else per * n for k, n in _expected_launches(cfg).items()}
+        calls = cfg.enc_dec.n_enc_layers + 2 * cfg.n_layers
+    else:
+        want = {k: 0 if k == "flash_decode" else per * n
+                for k, n in _expected_launches(cfg).items()}
+        calls = sum(b in ("attn", "shared_attn") for b in cfg.blocks)
+    if ops.attention_backward_route("cuda", cfg.compute_tdtype(), cfg.hd) == "flash" and calls:
+        want["flash_attention_bwd"] = 2 * calls
+    return want
 
 
 def _floor_train(torch, cfg):
@@ -3978,7 +4204,8 @@ def main() -> int:
 
     smi = timed("device", phase_device, torch)
     ptxas = timed("build", phase_build)
-    rows = timed("kernels", phase_kernels, torch) + timed("scans", phase_scans, torch)
+    rows = timed("kernels", phase_kernels, torch) + timed("scans", phase_scans, torch) \
+        + [timed("flash bwd", phase_flash_bwd, torch)]
     results = []
     for arch, prompt, layers in PATHS:
         results.append(timed(f"main {arch}", phase_main, torch, smi, arch, prompt, layers))
@@ -4009,13 +4236,14 @@ def main() -> int:
     log("[examples] " + json.dumps(dict(examples, card=smi)))
     # launches on the served, trained, trainer's, mesh and example paths together
     for row in rows:
-        row["launches"] = sum(r["launches"][row["name"]] for r in results + trained + [trainer]) \
-            + meshed["launches"][row["name"]] + examples["launches"][row["name"]]
-        row["launches_mesh"] = meshed["launches"][row["name"]]
-        row["launches_examples"] = examples["launches"][row["name"]]
-        row["launches_serve"] = {r["arch"]: r["launches"][row["name"]] for r in results}
-        row["launches_train"] = sum(r["launches"][row["name"]] for r in trained)
-        row["launches_trainer"] = trainer["launches"][row["name"]]
+        name = row["name"]  # a backward kernel is in a path's counts once it launched there
+        row["launches"] = sum(r["launches"].get(name, 0) for r in results + trained + [trainer]) \
+            + meshed["launches"].get(name, 0) + examples["launches"].get(name, 0)
+        row["launches_mesh"] = meshed["launches"].get(name, 0)
+        row["launches_examples"] = examples["launches"].get(name, 0)
+        row["launches_serve"] = {r["arch"]: r["launches"].get(name, 0) for r in results}
+        row["launches_train"] = sum(r["launches"].get(name, 0) for r in trained)
+        row["launches_trainer"] = trainer["launches"].get(name, 0)
         row["grad_parity"] = grads.get({"flash_attention_fwd": "attention", "mamba2_scan": "mamba2",
                                         "rwkv6_scan": "rwkv6"}.get(row["name"]))
         if row["name"] == "flash_attention_fwd":

@@ -11,13 +11,19 @@
 
 ``cuda`` runs attention and the two scans through ``torch.autograd.Function``s,
 the twins of the reference's ``jax.custom_vjp`` wrappers: the forward is the
-kernel's wrapper and saves only the inputs; the backward recomputes the
-plain twin (``ref.attention_blockwise``; ``mamba2_plain`` and
-``rwkv6_plain``, the chunked scans at the reference's chunks) under
-autograd and returns its gradients.  There is no
-hand-written backward kernel, as in the reference.  The chunked backward
-needs S to be a multiple of the chunk, so with grad enabled the scans
-refuse any other S when called, not in the backward pass.
+kernel's wrapper.  Attention's backward takes one of two routes, chosen
+from its input (:func:`attention_backward_route`): for bf16 on the card at
+head_dim 64 or 128 the forward also writes each row's log-sum-exp and the
+backward is two hand-written kernels (``flash_attention_bwd``, under a
+``flash backward: attention`` span), which the reference does not have;
+otherwise (CPU tensors, fp32, head_dim 192 or 256) the forward saves only
+the inputs and the backward recomputes the plain twin
+(``ref.attention_blockwise``) under autograd.  The scans' backwards
+recompute theirs (``mamba2_plain`` and ``rwkv6_plain``, the chunked scans
+at the reference's chunks), as in the reference.  Each plain backward runs
+in a ``plain backward: <name>`` span.  The chunked backward needs S to be
+a multiple of the chunk, so with grad enabled the scans refuse any other S
+when called, not in the backward pass.
 
 Over a mesh the four front doors take DTensors (:func:`_on_shards`): each
 kernel runs on the local shards, where its inputs are sharded only along
@@ -150,19 +156,42 @@ def _refuse_ragged(S: int, chunk: int, *ts: Optional[torch.Tensor]) -> None:
         raise ValueError("S must divide chunk")
 
 
+def attention_backward_route(device_type: str, dtype: torch.dtype, head_dim: int) -> str:
+    """``"flash"`` where the backward kernels take the input (bf16 on the
+    card at head_dim 64 or 128), else ``"plain"``."""
+    if device_type == "cuda" and dtype == torch.bfloat16 \
+            and head_dim in _flash.BWD_HEAD_DIMS:
+        return "flash"
+    return "plain"
+
+
 class _AttentionFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.scale = causal, scale
-        return _flash.flash_attention_fwd(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal, scale, flash):
+        """``flash``: a gradient will be asked for and the route is the
+        kernels'; the forward then also writes the LSE, saved beside the
+        inputs."""
+        ctx.causal, ctx.scale, ctx.flash = causal, scale, flash
+        if not flash:
+            ctx.save_for_backward(q, k, v)
+            return _flash.flash_attention_fwd(q, k, v, causal, scale)
+        o, lse = _flash.flash_attention_fwd(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        return o
 
     @staticmethod
     def backward(ctx, g):
-        def plain(q, k, v):
-            return ref.attention_blockwise(q, k, v, ctx.causal, ctx.scale)
-        return (*_vjp("attention", plain, ctx.saved_tensors, ctx.needs_input_grad[:3], (g,)),
-                None, None)
+        needs = ctx.needs_input_grad[:3]
+        if not ctx.flash:
+            def plain(q, k, v):
+                return ref.attention_blockwise(q, k, v, ctx.causal, ctx.scale)
+            return (*_vjp("attention", plain, ctx.saved_tensors, needs, (g,)), None, None, None)
+        with span("flash backward: attention"):
+            q, k, v, lse = ctx.saved_tensors
+            if not _flash.fits_kernel(g):
+                g = g.contiguous()
+            grads = _flash.flash_attention_bwd(q, k, v, lse, g, ctx.causal, ctx.scale)
+        return (*(d if need else None for d, need in zip(grads, needs)), None, None, None)
 
 
 class _Mamba2Fn(torch.autograd.Function):
@@ -200,7 +229,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl == "ref":
         return ref.attention_blockwise(q, k, v, causal, scale)
     if impl == "cuda":
-        return _AttentionFn.apply(q, k, v, causal, scale)
+        flash = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)) \
+            and attention_backward_route(q.device.type, q.dtype, q.shape[-1]) == "flash"
+        return _AttentionFn.apply(q, k, v, causal, scale, flash)
     raise ValueError(f"unknown impl {impl!r}")
 
 
@@ -260,10 +291,16 @@ def rwkv6_decode(r, k, v, w, u, s):
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    """Kernel launches per kernel since the last :func:`reset_launch_counts`:
+    the four forward kernels always, ``flash_attention_bwd`` (two launches
+    a backward) once it has launched."""
+    counts = {name: mod.launches for name, mod in _KERNELS.items()}
+    if _flash.launches_bwd:
+        counts["flash_attention_bwd"] = _flash.launches_bwd
+    return counts
 
 
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+    _flash.launches_bwd = 0
