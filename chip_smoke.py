@@ -77,7 +77,9 @@ Phases, each of which raises on failure (nothing is caught):
              granite-moe-3b-a800m (prompt 1000; 16 of its 32 layers;
              40 experts top-8 on the capacity path) and deepseek-v2-236b (prompt 1000; 8 of its
              60 layers: the dense first layer and 7 MoE layers of 160
-             experts top-6 with 2 shared; MLA: the flash kernel in
+             experts top-6 with 2 shared, as published: YaRN rope,
+             group-limited routing with gates x 16, every assignment
+             computed; MLA: the flash kernel in
              prefill, latent-space decode without a kernel) and
              whisper-tiny (prompt 383; 4 encoder and 4 decoder layers at
              full depth over 1500 seeded frame embeddings a request: the
@@ -268,13 +270,14 @@ TIGHT_ATOL, TIGHT_RTOL = 5e-3, 1e-2
 # and the shared experts), the dense layer 0.68 GB, the embedding and the
 # untied head 2.10 GB: 58.4 GB at 8 layers.  While the stack is filled, one
 # layer's fp32 init copies add ~12 GB beside it; prefill adds the head's
-# fp32 copy (2.1 GB), the expert buffers at the serve capacity 3.0 (125
-# groups of 64 tokens, C = 7: 160 x 875 rows of 5120, 1.4 GB in and 1.4 GB
-# out) and q, k, padded V and o at (8, 128, 1000, 192) (0.4 GB each).  At 8
-# layers the init peaked at 69.2 GB and the phase at 74.35 GB (the plain
-# and fp32 attention of the teacher-forced checks) of the card's 85.02 GB
-# (NVIDIA H100 80GB HBM3, 700.00 W); a ninth layer's 7.94 GB would take it
-# past SERVE_MEM_SHARE.  whisper-tiny serves at full depth (4 encoder and 4
+# fp32 copy (2.1 GB), the dropless dispatch's sorted rows (8,000 tokens x
+# 6 assignments of 5120, 0.5 GB in and 0.5 GB out; the preset computes
+# every assignment, as the published model) and q, k, padded V and o at
+# (8, 128, 1000, 192) (0.4 GB each).  At 8 layers under the earlier
+# capacity dispatch (1.4 GB of buffers each way) the init peaked at 69.2
+# GB and the phase at 74.35 GB (the plain and fp32 attention of the
+# teacher-forced checks) of the card's 85.02 GB (NVIDIA H100 80GB HBM3,
+# 700.00 W); a ninth layer's 7.94 GB would take it past SERVE_MEM_SHARE.  whisper-tiny serves at full depth (4 encoder and 4
 # decoder layers, 1500 frame embeddings a request) with a prompt of 383: a
 # prompt, 64 tokens and the slot after them fill its published text
 # context of 448.  Every path's peak must stay within SERVE_MEM_SHARE of
@@ -1822,13 +1825,26 @@ def phase_main(torch, smi, arch, prompt, layers):
 
 @contextlib.contextmanager
 def _routing(cfg, record):
-    """On a MoE path, append each capacity dispatch's top-k experts and kept
-    mask, (G, T, K) each, to ``record``: one entry a layer a step."""
+    """On a MoE path, append each dispatch's top-k experts and kept mask,
+    (..., T, K) each, to ``record``: one entry a layer a step.  The
+    capacity dispatch's mask is its slots'; the dropless dispatch keeps
+    every assignment."""
     if cfg.moe is None:
         yield
         return
     from repro_torch.models import mlp
 
+    if cfg.moe.dropless:
+        route = mlp._route
+
+        def routing(c, p, x):
+            gate_w, gate_i, aux = route(c, p, x)
+            record.append((gate_i, gate_i >= 0))  # every assignment kept
+            return gate_w, gate_i, aux
+
+        with _planted(mlp, _route=routing):
+            yield
+        return
     slots = mlp._slots
 
     def recording(gate_i, E, C):

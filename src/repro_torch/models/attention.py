@@ -18,7 +18,14 @@ zero-padded to that width and sliced back, as the reference.  Decode stays
 in the latent space (``k_up`` absorbed into the query, ``v_up`` applied to
 the attended latent), plain torch as in the reference.  The reference's
 prefill projects the prompt twice, once for the cache and once inside
-``mla_apply``; here once, for both: the same values.
+``mla_apply``; here once, for both: the same values.  Under
+``rope_type="yarn"`` the rope dims take YaRN's frequencies and the softmax
+scale its temperature (:func:`mla_softmax_scale`), as DeepSeek-V2's
+published code, which the reference lacks; the rope dims stay split-half,
+where the published checkpoint stores them interleaved (a fixed permutation
+of ``q_up``'s and ``kv_down``'s rope columns for seeded weights).  Each MLA
+block of a prefill is an ``attn: mla`` span, also on the device's clock;
+the training forward and decode steps open none.
 """
 
 from __future__ import annotations
@@ -28,8 +35,9 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from .common import (apply_mrope, apply_norm, apply_rope, constrain_dims, dense_init,
-                     init_device, is_dtensor, norm_init, zero_pad)
+from repro_torch import spans
+from .common import (apply_mrope, apply_norm, apply_rope, apply_rotary, constrain_dims,
+                     dense_init, init_device, is_dtensor, norm_init, yarn_mscale, zero_pad)
 from .config import ModelConfig
 
 Tensors = Dict[str, torch.Tensor]
@@ -197,11 +205,22 @@ def _mla_qkv(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
     q = _proj(cq, p["q_up"])
     ckv_full = x @ p["kv_down"].to(x.dtype)
     ckv = apply_norm(cfg, p["kv_norm"], ckv_full[..., :m.kv_lora])
-    q_pe = apply_rope(q[..., m.qk_nope:], positions, cfg.rope_theta)
-    k_pe = apply_rope(ckv_full[..., None, m.kv_lora:], positions, cfg.rope_theta)[:, :, 0]
+    q_pe = apply_rotary(cfg, q[..., m.qk_nope:], positions)
+    k_pe = apply_rotary(cfg, ckv_full[..., None, m.kv_lora:], positions)[:, :, 0]
     q_nope = constrain_dims(q[..., :m.qk_nope], {0: "dp", 2: "model"})
     q_pe = constrain_dims(q_pe, {0: "dp", 2: "model"})
     return q_nope, q_pe, ckv, k_pe
+
+
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """(qk_nope + qk_rope)^-1/2, under YaRN times mscale(yarn_mscale_all_dim)
+    squared (DeepSeek-V2's ``softmax_scale``; 1.58963 at its published
+    factor 40 and 0.707)."""
+    m = cfg.mla
+    scale = (m.qk_nope + m.qk_rope) ** -0.5
+    if cfg.rope_type == "yarn" and cfg.yarn_mscale_all_dim:
+        scale *= yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) ** 2
+    return scale
 
 
 def _mla_attend(cfg: ModelConfig, p: Tensors, q_nope: torch.Tensor, q_pe: torch.Tensor,
@@ -215,7 +234,7 @@ def _mla_attend(cfg: ModelConfig, p: Tensors, q_nope: torch.Tensor, q_pe: torch.
     k = torch.cat([k_nope, k_pe[:, :, None].expand(*k_nope.shape[:3], m.qk_rope)], -1)
     v = zero_pad(v, (0, q.shape[-1] - m.v_head))
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
-                      scale=(m.qk_nope + m.qk_rope) ** -0.5, impl=cfg.attn_impl)
+                      scale=mla_softmax_scale(cfg), impl=cfg.attn_impl)
     o = constrain_dims(o.transpose(1, 2)[..., :m.v_head], {0: "dp", 2: "model"})
     return _out(o, p["wo"])
 
@@ -239,11 +258,12 @@ def mla_prefill(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
                 positions: torch.Tensor,
                 cache: Tensors) -> Tuple[torch.Tensor, Tensors]:
     """Prompt of S tokens: write cache[:, :S] in place, attend causally."""
-    q_nope, q_pe, ckv, k_pe = _mla_qkv(cfg, p, x, positions)
-    S = x.shape[1]
-    cache["ckv"][:, :S] = ckv
-    cache["kpe"][:, :S] = k_pe
-    return _mla_attend(cfg, p, q_nope, q_pe, ckv, k_pe, True), cache
+    with spans.span("attn: mla", device=x.device):
+        q_nope, q_pe, ckv, k_pe = _mla_qkv(cfg, p, x, positions)
+        S = x.shape[1]
+        cache["ckv"][:, :S] = ckv
+        cache["kpe"][:, :S] = k_pe
+        return _mla_attend(cfg, p, q_nope, q_pe, ckv, k_pe, True), cache
 
 
 def mla_latent_attention(q_lat: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
@@ -268,13 +288,12 @@ def mla_decode(cfg: ModelConfig, p: Tensors, x: torch.Tensor, pos: torch.Tensor,
     """x: (B,1,D); pos: (B,) int32.  The query is projected into the latent
     space (``k_up`` absorbed), so attention reads the (kv_lora + qk_rope)
     cache directly: the MLA serving trick."""
-    m = cfg.mla
     q_nope, q_pe, ckv, k_pe = _mla_qkv(cfg, p, x, pos[:, None])
     idx = pos.long()
     _write_rows(cache["ckv"], idx, ckv[:, 0])
     _write_rows(cache["kpe"], idx, k_pe[:, 0])
     q_lat = torch.einsum("bhk,lhk->bhl", q_nope[:, 0], p["k_up"].to(x.dtype))
     ctx = mla_latent_attention(q_lat, q_pe[:, 0], cache["ckv"], cache["kpe"], pos + 1,
-                               (m.qk_nope + m.qk_rope) ** -0.5)
+                               mla_softmax_scale(cfg))
     o = torch.einsum("bhl,lhk->bhk", ctx, p["v_up"].to(x.dtype))
     return _out(o[:, None], p["wo"]), cache

@@ -1,4 +1,4 @@
-"""Shared layers: init helpers, norms, RoPE / M-RoPE, embeddings, LM head.
+"""Shared layers: init helpers, norms, RoPE / YaRN / M-RoPE, embeddings, LM head.
 
 Plain functions on tensors, twins of the reference package's
 ``models/common.py``.  Initialisers draw from an explicit
@@ -87,17 +87,20 @@ def apply_norm(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# RoPE and M-RoPE (split-half, NeoX style, in float32)
+# RoPE, YaRN and M-RoPE (split-half, NeoX style, in float32)
 # ---------------------------------------------------------------------------
 def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                          device=device) / dim))
 
 
-def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, H, D) rotated by the (B, S, D/2) angles, split-half."""
+def _rotate(x: torch.Tensor, ang: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, D) rotated by the (B, S, D/2) angles, split-half; cos and
+    sin times ``gain`` where it is not 1."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
+    if gain != 1.0:
+        cos, sin = cos * gain, sin * gain
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -107,6 +110,49 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """x: (B, S, H, D) with D even; positions: (B, S) int."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)
     return _rotate(x, positions[..., None].float() * freqs)
+
+
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention temperature 0.1 * mscale * ln(scale) + 1 (1 for no
+    scaling), as DeepSeek-V2's ``yarn_get_mscale``."""
+    return 0.1 * mscale * math.log(scale) + 1.0 if scale > 1 else 1.0
+
+
+def yarn_correction_range(cfg: ModelConfig, dim: int) -> Tuple[int, int]:
+    """The frequency indices between which YaRN blends the extrapolated and
+    the interpolated frequencies: where the pre-training length held
+    ``yarn_beta_fast`` and ``yarn_beta_slow`` rotations, floored and ceiled
+    into [0, dim - 1] (DeepSeek-V2's ``yarn_find_correction_range``)."""
+    def corr(rotations: float) -> float:
+        return dim * math.log(cfg.yarn_original_max_len / (rotations * 2 * math.pi)) \
+            / (2 * math.log(cfg.rope_theta))
+    return (max(math.floor(corr(cfg.yarn_beta_fast)), 0),
+            min(math.ceil(corr(cfg.yarn_beta_slow)), dim - 1))
+
+
+def yarn_freqs(cfg: ModelConfig, dim: int, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies of a rotary dim: below the correction
+    range the pre-trained ones, above it those divided by ``yarn_factor``,
+    a linear ramp between."""
+    extra = rope_freqs(dim, cfg.rope_theta, device)
+    inter = 1.0 / (cfg.yarn_factor * cfg.rope_theta ** (
+        torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+    low, high = yarn_correction_range(cfg, dim)
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / max(high - low, 0.001)).clamp(0, 1)
+    return extra * (1 - ramp) + inter * ramp
+
+
+def apply_rotary(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D) rotated by ``cfg``'s RoPE at positions (B, S): the
+    standard frequencies, or under ``rope_type="yarn"`` YaRN's, with cos and
+    sin scaled by mscale(yarn_mscale) / mscale(yarn_mscale_all_dim)."""
+    if cfg.rope_type != "yarn":
+        return apply_rope(x, positions, cfg.rope_theta)
+    s = cfg.yarn_factor
+    gain = yarn_mscale(s, cfg.yarn_mscale) / yarn_mscale(s, cfg.yarn_mscale_all_dim)
+    return _rotate(x, positions[..., None].float() * yarn_freqs(cfg, x.shape[-1], x.device),
+                   gain)
 
 
 def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,

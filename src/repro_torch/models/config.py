@@ -2,12 +2,16 @@
 
 A copy of the reference package's ``ModelConfig`` and its sub-configs, so
 the port imports nothing of that package.  The fields and their defaults
-are the reference's, with two differences:
+are the reference's, with three differences:
 
 * ``param_tdtype``/``compute_tdtype`` return ``torch.dtype``s;
 * ``attn_impl`` and ``scan_impl`` default to ``"auto"``: the hand-written
   CUDA kernels for tensors on the card, the plain ``ref`` path for tensors
-  on the CPU (:func:`repro_torch.kernels.ops._resolve`).
+  on the CPU (:func:`repro_torch.kernels.ops._resolve`);
+* DeepSeek-V2's published settings, which the reference lacks: the YaRN
+  fields (``yarn_*``) and the group-limited routing of ``MoEConfig``
+  (``n_group``, ``topk_group``, ``routed_scaling``, ``norm_topk``).  Their
+  defaults compute what the reference computes.
 """
 
 from __future__ import annotations
@@ -34,6 +38,15 @@ class MoEConfig:
     group_tokens: int = 1024
     map_chunk_groups: int = 4096
     dropless: bool = False
+    # DeepSeek-V2's group-limited routing: the experts in ``n_group`` groups
+    # of consecutive ids, a token's top_k taken within its ``topk_group``
+    # best groups (a group scored by its best expert); with ``norm_topk``
+    # false the gates are the probabilities times ``routed_scaling``, not
+    # renormalised.  The defaults are the plain top-k with renormalised gates.
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling: float = 1.0
+    norm_topk: bool = True
 
 
 @dataclass(frozen=True)
@@ -94,6 +107,15 @@ class ModelConfig:
     norm_unit_offset: bool = False
     rope_theta: float = 10000.0
     rope_type: str = "standard"
+    # rope_type "yarn" (DeepSeek-V2's rope_scaling): the scale factor, the
+    # positions the model was pre-trained at, the correction range's
+    # rotations and the two attention-temperature coefficients
+    yarn_factor: float = 1.0
+    yarn_original_max_len: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
     mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     logit_softcap: float = 0.0
     moe: Optional[MoEConfig] = None
@@ -154,7 +176,10 @@ def check_supported(cfg: ModelConfig) -> None:
     and shared experts, leading dense layers), Mamba2 blocks with a shared
     attention block (Zamba2), RWKV6 blocks and the Whisper
     encoder-decoder (``enc_dec``), under either remat policy (``"dots"``;
-    any other name means nothing saved, as in the reference).  A name
+    any other name means nothing saved, as in the reference).  Beyond the
+    reference it runs DeepSeek-V2 as published: YaRN rope (``rope_type``
+    ``"yarn"``, on MLA blocks only) and group-limited routing with scaled
+    gates (``MoEConfig.n_group`` and the fields after it).  A name
     outside these (a block kind, ``rope_type``, ``norm`` or ``mlp_act``)
     is refused here, so that a config never silently runs a different
     model.
@@ -162,7 +187,10 @@ def check_supported(cfg: ModelConfig) -> None:
     unknown = sorted(set(cfg.blocks) - set(_PORTED_BLOCKS))
     missing = [name for name, on in (
         ("block kinds " + ",".join(unknown), bool(unknown)),
-        ("rope_type=" + cfg.rope_type, cfg.rope_type not in ("standard", "mrope", "none")),
+        ("rope_type=" + cfg.rope_type,
+         cfg.rope_type not in ("standard", "mrope", "none", "yarn")),
+        ("rope_type=yarn outside MLA blocks",
+         cfg.rope_type == "yarn" and set(cfg.blocks) != {"mla"}),
         ("norm=" + cfg.norm, cfg.norm not in ("rmsnorm", "layernorm")),
         ("mlp_act=" + cfg.mlp_act,
          cfg.mlp_act not in ("silu", "swiglu", "gelu", "geglu", "gelu_mlp")),
@@ -173,3 +201,8 @@ def check_supported(cfg: ModelConfig) -> None:
     for kind, sub in _BLOCK_CONFIGS.items():
         if kind in cfg.blocks and getattr(cfg, sub) is None:
             raise ValueError(f"{cfg.name}: {kind} blocks need cfg.{sub}")
+    m = cfg.moe
+    if m is not None and (m.num_experts % m.n_group
+                          or m.topk_group * (m.num_experts // m.n_group) < m.top_k):
+        raise ValueError(f"{cfg.name}: {m.num_experts} experts in {m.n_group} groups, "
+                         f"{m.topk_group} of them kept, cannot give top_k {m.top_k}")

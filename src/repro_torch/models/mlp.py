@@ -21,6 +21,7 @@ reference does: ``wg`` is made and never read, so its gradient is zero.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -89,14 +90,27 @@ def _router_logits(p: Tensors, x: torch.Tensor) -> torch.Tensor:
 
 def _route(cfg: ModelConfig, p: Tensors,
            x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (..., T, D) -> normalised gate weights and experts (..., T, K), in
-    descending order as ``lax.top_k`` gives them, and the load-balancing
-    aux loss (...,)."""
+    """x: (..., T, D) -> gate weights and experts (..., T, K), in descending
+    order as ``lax.top_k`` gives them, and the load-balancing aux loss
+    (...,).  The top-k is over every expert, or with ``n_group > 1`` over
+    the experts of the token's ``topk_group`` best groups, the others' p
+    set to 0 (DeepSeek-V2's ``group_limited_greedy``); the gates are
+    renormalised to sum 1, or with ``norm_topk`` false are p times
+    ``routed_scaling``."""
     m = cfg.moe
     E = m.num_experts
     probs = torch.softmax(_router_logits(p, x), dim=-1)
-    gate_w, gate_i = torch.topk(probs, m.top_k, dim=-1, sorted=True)
-    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    scores = probs
+    if m.n_group > 1:
+        grouped = probs.unflatten(-1, (m.n_group, E // m.n_group))
+        best = torch.topk(grouped.amax(-1), m.topk_group, dim=-1).indices
+        kept = torch.zeros_like(grouped[..., 0], dtype=torch.bool).scatter_(-1, best, True)
+        scores = grouped.masked_fill(~kept[..., None], 0.0).flatten(-2)
+    gate_w, gate_i = torch.topk(scores, m.top_k, dim=-1, sorted=True)
+    if m.norm_topk:
+        gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    else:
+        gate_w = gate_w * m.routed_scaling
     # Switch's E * sum_e f_e * P_e
     ce = F.one_hot(gate_i, E).sum(-2).float().mean(-2)
     aux = (probs.mean(-2) * ce).sum(-1) * E * m.aux_loss_weight
@@ -275,8 +289,8 @@ def _combine_local(out, split: List[bool], slot: torch.Tensor, w: torch.Tensor) 
                               run_check=False).redistribute(mesh, keep).to_local()
 
 
-def _moe_dropless(cfg: ModelConfig, p: Tensors,
-                  x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_dropless(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
+                  timed: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dropless dispatch over all T tokens: the (t, k) assignments sorted by
     expert (stable, as ``jnp.argsort``), each expert's run of rows through
     its MLP (the reference's ``ragged_dot``), the weighted outputs added
@@ -284,33 +298,60 @@ def _moe_dropless(cfg: ModelConfig, p: Tensors,
     gate_w, gate_i, aux = _route(cfg, p, x)
     if is_dtensor(x):
         return _dropless_on_shards(cfg, p, x, gate_w, gate_i), aux
-    return _dropless_dispatch(cfg, p, x, gate_w, gate_i), aux
+    return _dropless_dispatch(cfg, p, x, gate_w, gate_i, timed), aux
 
 
 def _dropless_dispatch(cfg: ModelConfig, p: Tensors, x: torch.Tensor, gate_w: torch.Tensor,
-                       gate_i: torch.Tensor) -> torch.Tensor:
+                       gate_i: torch.Tensor, timed: bool = False) -> torch.Tensor:
     """The sort, the grouped products and the weighted sum of
     :func:`_moe_dropless` over the rows of ``x``: each token's output reads
-    only its own row and its own assignments."""
+    only its own row and its own assignments, added in a fixed order.
+    ``timed`` (a prompt's pass): the products are a ``moe: experts`` span,
+    also on the device's clock, and while a profiler records the counters
+    ``moe: expert rows`` and ``moe: expert rows max`` add the assignments
+    and the most-loaded expert's rows (on the device: nothing is read back
+    for them)."""
     m = cfg.moe
+    E = m.num_experts
     flat_e = gate_i.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
-    tok = order // m.top_k
-    xs = x[tok]
+    xs = x[order // m.top_k]
     if flat_e.is_meta:
         # a shapes-only trace (the dry-run) has no routing to read; the
         # grouped products' FLOPs and bytes do not depend on how the rows
         # split over the experts, so split them evenly
-        n, E = flat_e.numel(), m.num_experts
-        sizes = [n // E + (e < n % E) for e in range(E)]
+        n = flat_e.numel()
+        counts = torch.tensor([n // E + (e < n % E) for e in range(E)])
     else:
-        sizes = torch.bincount(flat_e, minlength=m.num_experts).tolist()
-    act = act_fn(cfg.mlp_act)
+        counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+            0, flat_e, torch.ones_like(flat_e))
+    if timed and spans.profiling():
+        spans.count("moe: expert rows", counts.sum())
+        spans.count("moe: expert rows max", counts.max())
     wi, wg, wo = (p[k].to(x.dtype) for k in ("wi", "wg", "wo"))
-    out = torch.cat([(act(xe @ wi[e]) * (xe @ wg[e])) @ wo[e]
-                     for e, xe in enumerate(xs.split(sizes))])
-    w_sorted = gate_w.reshape(-1)[order].to(x.dtype)
-    return torch.zeros_like(x).index_add_(0, tok, out * w_sorted[:, None])
+    grouped = x.dtype == torch.bfloat16
+    with spans.span("moe: experts", device=x.device) if timed else nullcontext():
+        out = _expert_mlps(act_fn(cfg.mlp_act), xs, counts, wi, wg, wo, grouped)
+    # back in (token, k) order, each token's k weighted outputs summed in one
+    # reduction: no atomic adds, so the same inputs give the same bits
+    back = out[torch.argsort(order)].unflatten(0, gate_i.shape)
+    return (back * gate_w.to(x.dtype)[..., None]).sum(-2)
+
+
+def _expert_mlps(act: Callable, xs: torch.Tensor, counts: torch.Tensor, wi: torch.Tensor,
+                 wg: torch.Tensor, wo: torch.Tensor, grouped: bool) -> torch.Tensor:
+    """Each expert's gated MLP over its run of ``xs`` (the rows sorted by
+    expert, ``counts[e]`` rows for expert e).  ``grouped``: three grouped
+    products over all the experts at once (PyTorch's grouped GEMM, bf16),
+    their runs given by the counts on the device, so the host reads nothing
+    and launches three products a layer; else three products a run, the
+    runs read to the host (the fp32 path)."""
+    if grouped:
+        ends = counts.cumsum(0).to(xs.device, torch.int32)
+        h = act(torch._grouped_mm(xs, wi, offs=ends)) * torch._grouped_mm(xs, wg, offs=ends)
+        return torch._grouped_mm(h, wo, offs=ends)
+    return torch.cat([(act(xe @ wi[e]) * (xe @ wg[e])) @ wo[e]
+                      for e, xe in enumerate(xs.split(counts.tolist()))])
 
 
 def _dropless_on_shards(cfg: ModelConfig, p: Tensors, x, gate_w, gate_i):
@@ -368,12 +409,14 @@ def moe_apply(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
     The reference maps its vmap over chunks of ``map_chunk_groups`` groups
     when there are more, to bound its temporaries; that changes no value,
     so one batched pass over all groups stands for both of its branches.
-    ``dropless`` configs take the exact sort + grouped-matmul path.
+    ``dropless`` configs take the exact sort + grouped-matmul path, whose
+    expert products a prompt's pass (``serve`` over more than one
+    position) times.
     """
     m = cfg.moe
     B, S, D = x.shape
     if m.dropless:
-        y, aux = _moe_dropless(cfg, p, x.reshape(B * S, D))
+        y, aux = _moe_dropless(cfg, p, x.reshape(B * S, D), timed=serve and S > 1)
     else:
         T = B * S
         gt = min(m.group_tokens, T)

@@ -82,3 +82,27 @@ def plain(v):
     if hasattr(v, "value") and type(v).__module__.split(".")[0] in ROOTS.values():
         return v.value
     return v
+
+
+#: what the port's deepseek-v2-236b ``full()`` adds to the reference
+#: package's config: the published YaRN rope, group-limited routing with
+#: scaled gates, and the dropless dispatch of the published inference code
+PUBLISHED_ONLY = ("rope_type", "yarn_factor", "yarn_original_max_len", "yarn_beta_fast",
+                  "yarn_beta_slow", "yarn_mscale", "yarn_mscale_all_dim")
+PUBLISHED_ONLY_MOE = ("n_group", "topk_group", "routed_scaling", "norm_topk")
+
+
+def with_reference_rope_and_routing(cfg):
+    """A port config with the reference package's RoPE and routing where it
+    states the published ones (deepseek-v2-236b's ``full()``): standard RoPE,
+    a plain top-k with renormalised gates and the capacity dispatch, each
+    field at its default; any other config as it is.  The twin tests that
+    hold a full config against the reference's compare like with like."""
+    from dataclasses import fields, replace
+    if cfg.rope_type != "yarn":
+        return cfg
+    default = {f.name: f.default for f in fields(cfg)}
+    moe_default = {f.name: f.default for f in fields(cfg.moe)}
+    return replace(cfg, **{k: default[k] for k in PUBLISHED_ONLY},
+                   moe=replace(cfg.moe, dropless=False,
+                               **{k: moe_default[k] for k in PUBLISHED_ONLY_MOE}))

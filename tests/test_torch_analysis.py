@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _torch_twins import with_reference_rope_and_routing
 from repro.analysis.hlo import analyze_hlo
 from repro.analysis.roofline import HW as JHW
 from repro.analysis.roofline import model_flops as jmodel_flops
@@ -129,7 +130,7 @@ def test_h100_record():
 def test_model_flops_equal_reference(arch, shape):
     assert [(a, s) for a, s in cells(include_skipped=True)] == jcells(include_skipped=True)
     kind = SHAPES[shape].kind
-    assert model_flops(get_config(arch), SHAPES[shape], kind) == \
+    assert model_flops(with_reference_rope_and_routing(get_config(arch)), SHAPES[shape], kind) == \
         jmodel_flops(jget_config(arch), JSHAPES[shape], kind)
 
 

@@ -391,3 +391,36 @@ def test_cuda_train_steps_match_the_plain_path_on_the_card():
             grads.append(torch.autograd.grad(sum((o ** 2).sum() for o in outs), xs))
         for a, b in zip(*grads):
             torch.testing.assert_close(a, b, atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_expert_products_match_the_loop_on_the_card():
+    """DeepSeek-V2's dropless expert products at its widths (160 experts of
+    5120 x 1536, a prefill's 16,384 x 6 rows split unevenly, empty runs
+    included) on the card's grouped path against the loop of products a
+    run on the same bf16 operands, and both against the loop in fp32: the
+    grouped GEMM and cuBLAS round the same products to bf16, so they agree
+    to a few bf16 units; against fp32 each stays within bf16's rounding
+    of the output's scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from repro_torch.models import mlp
+
+    E, D, F, N = 160, 5120, 1536, 16384 * 6
+    g = torch.Generator(device="cuda").manual_seed(7)
+    flat_e = torch.randint(0, E, (N,), generator=g, device="cuda")
+    flat_e[flat_e == 3] = 4  # an empty run
+    counts = torch.bincount(flat_e, minlength=E)
+    xs = torch.randn(N, D, generator=g, device="cuda").bfloat16()
+    wi, wg = (torch.randn(E, D, F, generator=g, device="cuda").mul(D ** -0.5).bfloat16()
+              for _ in range(2))
+    wo = torch.randn(E, F, D, generator=g, device="cuda").mul(F ** -0.5).bfloat16()
+    act = torch.nn.functional.silu
+    grouped = mlp._expert_mlps(act, xs, counts, wi, wg, wo, grouped=True).float()
+    loop = mlp._expert_mlps(act, xs, counts, wi, wg, wo, grouped=False).float()
+    fp32 = mlp._expert_mlps(act, xs.float(), counts, wi.float(), wg.float(), wo.float(),
+                            grouped=False)
+    scale = fp32.abs().max().item()
+    assert (grouped - loop).abs().max().item() <= 4 * 2 ** -8 * scale
+    assert (grouped - fp32).abs().max().item() <= 4 * 2 ** -8 * scale
+    assert (loop - fp32).abs().max().item() <= 4 * 2 ** -8 * scale

@@ -28,6 +28,7 @@ import pytest
 import torch
 from jax.sharding import AbstractMesh, AxisType, PartitionSpec as P
 
+from _torch_twins import with_reference_rope_and_routing
 from repro.analysis.hlo import HloSummary
 from repro.configs import SHAPES as JSHAPES
 from repro.configs import cells as jcells
@@ -150,7 +151,7 @@ def test_resident_bytes_equal_reference_formula(arch, shape):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_meta_inputs_equal_reference(arch):
     """Train state, batch and decode inputs: leaf names, shapes, dtypes."""
-    cfg = get_config(arch)
+    cfg = with_reference_rope_and_routing(get_config(arch))
     state, jstate = train_state_shape(build_model(cfg), AdamWConfig()), _jstate(arch)
     assert bridge.leaf_names(state) == _jnames(jstate)
     assert _shapes(state) == _jshapes(jstate)

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_twins import PUBLISHED_ONLY, PUBLISHED_ONLY_MOE, with_reference_rope_and_routing
 from repro.configs import get_config as jget_config
 from repro.launch.steps import make_generate_loop as jmake_generate_loop
 from repro.launch.steps import make_train_step as jmake_train_step
@@ -100,15 +101,31 @@ def deepseek():
 def test_config_is_the_reference_config():
     """The published config field for field (sub-configs included), and
     the smoke config; the layers form a ``dense`` and a ``moe`` group of
-    ``mla`` blocks."""
+    ``mla`` blocks.  The full config also states what the reference lacks
+    (YaRN, group-limited routing with scaled gates, the dropless dispatch):
+    with the reference's RoPE and routing in their place it is the
+    reference's, and the smoke config is the reference's as it is."""
+    full = get_config(ARCH)
+    assert (full.rope_type, full.yarn_factor, full.yarn_original_max_len, full.yarn_beta_fast,
+            full.yarn_beta_slow, full.yarn_mscale, full.yarn_mscale_all_dim) == \
+        ("yarn", 40.0, 4096, 32.0, 1.0, 0.707, 0.707)
+    assert (full.moe.n_group, full.moe.topk_group, full.moe.routed_scaling,
+            full.moe.norm_topk, full.moe.dropless) == (8, 3, 16.0, False, True)
+    assert with_reference_rope_and_routing(get_config(ARCH, smoke=True)) == \
+        get_config(ARCH, smoke=True)
     for smoke in (False, True):
         want = jget_config(ARCH, smoke=smoke).__dict__
-        got = get_config(ARCH, smoke=smoke).__dict__
-        assert set(got) == set(want)
+        got = with_reference_rope_and_routing(get_config(ARCH, smoke=smoke)).__dict__
+        assert set(got) - set(want) == set(PUBLISHED_ONLY) - {"rope_type"}
+        assert set(got["moe"].__dict__) - set(want["moe"].__dict__) == set(PUBLISHED_ONLY_MOE)
+        got = {k: v for k, v in got.items() if k in want}
         for k, v in want.items():
             if k in ("attn_impl", "scan_impl"):  # the port's "auto": kernels on the card
                 continue
-            if k in ("mla", "moe"):
+            if k == "moe":
+                assert {f: x for f, x in got[k].__dict__.items()
+                        if f not in PUBLISHED_ONLY_MOE} == v.__dict__, k
+            elif k == "mla":
                 assert got[k].__dict__ == v.__dict__, k
             else:
                 assert got[k] == v, k

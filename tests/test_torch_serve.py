@@ -204,7 +204,7 @@ BRANCHES = [
          mla=MLAConfig(q_lora=64, kv_lora=32, qk_nope=16, qk_rope=16, v_head=16)),
     dict(mla=MLAConfig()),
     dict(enc_dec=EncDecConfig()), dict(mlp_act="gelu_mlp"),
-    dict(rope_type="yarn"),
+    dict(rope_type="longrope"),
 ]
 N_PORTED_BRANCHES = 16
 

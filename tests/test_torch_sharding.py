@@ -21,6 +21,7 @@ import torch
 import torch.distributed as dist
 from jax.sharding import AbstractMesh, AxisType, PartitionSpec as P
 
+from _torch_twins import with_reference_rope_and_routing
 from repro.configs import ARCH_IDS
 from repro.configs import get_config as jget_config
 from repro.launch import sharding as jshd
@@ -53,7 +54,8 @@ CACHE_ARCHS = ["tinyllama_1_1b", "deepseek_v2_236b", "gemma_2b", "zamba2_1_2b", 
 @lru_cache(maxsize=None)
 def _states(arch):
     """(port meta train state, reference train state shapes) of the full config."""
-    return (train_state_shape(build_model(get_config(arch)), AdamWConfig()),
+    return (train_state_shape(build_model(with_reference_rope_and_routing(get_config(arch))),
+                              AdamWConfig()),
             jtrain_state_shape(jbuild_model(jget_config(arch)), JAdamWConfig()))
 
 
@@ -115,7 +117,8 @@ def test_param_specs_valid_all_archs(arch, mesh):
 @pytest.mark.parametrize("arch", CACHE_ARCHS)
 def test_cache_specs_valid(arch, mesh):
     tmesh, jmesh = MESHES[mesh]
-    cache = lm.init_cache(get_config(arch), 128, 1024, torch.device("meta"))
+    cache = lm.init_cache(with_reference_rope_and_routing(get_config(arch)), 128, 1024,
+                          torch.device("meta"))
     specs = shd.cache_specs(cache, tmesh)
     _check_tree(cache, specs, tmesh)
     jcache = jax.eval_shape(lambda: jlm.init_cache(jget_config(arch), 128, 1024))
